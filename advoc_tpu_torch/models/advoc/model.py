@@ -17,6 +17,10 @@ onto torch as follows (checked by ``tests/test_torch_model.py``):
   it); :mod:`.convert` does the flip.
 * ``GroupNorm`` has eps 1e-6 (torch's default is 1e-5), f32 statistics with
   var = E[x²] − E[x]², and its output in the compute dtype.
+
+``AdvocConfig(packed_tail=True)`` computes the finest decoder level and the
+1×1 head in the packed layout (B, T, W, 2f) of the JAX package
+(:class:`_PackedTailUp`), with the same parameters and function.
 """
 
 from __future__ import annotations
@@ -28,14 +32,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
+
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class AdvocConfig:
     """Hyperparameters of the advoc GAN; the JAX package's fields and
-    defaults. Of the generator's modes only the default one is ported: the
-    others raise ``NotImplementedError`` (ROADMAP.md queue A)."""
+    defaults. Of the generator's modes the default one and ``packed_tail``
+    are ported: the others raise ``NotImplementedError`` (ROADMAP.md queue
+    A)."""
 
     n_frames: int = 256
     n_freq: int = 513
@@ -127,6 +134,57 @@ class _Up(nn.Module):
         return F.relu(self.norm(x))
 
 
+class _PackedTailUp(nn.Module):
+    """The finest :class:`_Up` level in the packed layout of the JAX
+    package's ``_PackedTailUp``: NHWC (B, H, W, cin) in, (B, 2H, W, 2f) out,
+    lane q·f + c of row 2m + p holding output pixel (2m + p, 2n + q),
+    channel c. Same parameters (``conv``, ``norm``) and function as ``_Up``.
+
+    The transpose-conv, its bias and the per-lane Σy, Σy² come from kernel
+    B4 (:mod:`advoc_tpu_torch.ops.kernels.packed_up`) whenever the compute
+    dtype is bfloat16 and ``x`` is a CUDA tensor, with tm the largest of 16,
+    8, 4, 2, 1 that divides H and H // 2. The JAX package also asks
+    (H // 2) % 8 == 0 (``model.py:294-298``), a limit of the TPU's tiles
+    that the CUDA kernel does not have. Otherwise (a CPU tensor, or
+    float32 compute, the JAX XLA branch) from its plain version in the
+    compute dtype. The kernel takes cin and f that are multiples of 8, as
+    every documented width (16, 24, 32, 64) gives; other widths raise on
+    the card.
+    GroupNorm then projects the lane sums onto groups (the same element
+    sets as the standard layout), folds its affine into x·A + B per
+    (batch, lane) in f32 and casts to the compute dtype; then ReLU.
+    """
+
+    def __init__(self, cin: int, features: int, cfg: AdvocConfig):
+        super().__init__()
+        self.dtype, self.features = cfg.compute_dtype, features
+        self.conv = nn.ConvTranspose2d(cin, features, 4, stride=2, padding=1)
+        self.norm = GroupNorm(cfg.norm_groups, features, self.dtype)
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, h, w, _ = x.shape
+        f, groups = self.features, self.norm.groups
+        # The converter flips the flax kernel; B4 takes flax's (4, 4, cin, f).
+        wt = self.conv.weight.flip(2, 3).permute(2, 3, 0, 1)
+        if self.dtype == torch.bfloat16 and x.is_cuda:
+            tm = next(t for t in (16, 8, 4, 2, 1) if h % t == 0 and (h // 2) % t == 0)
+            y, s1, s2 = packed_up_kernel(x.to(self.dtype).contiguous(), wt, self.conv.bias,
+                                         f=f, tm=tm, with_stats=True)
+        else:  # tm does not change the function; 1 divides every H // 2
+            y, s1, s2 = packed_up_plain(x.to(self.dtype), wt, self.conv.bias, f=f, tm=1,
+                                        with_stats=True)
+        lane_group = torch.arange(groups, device=x.device).repeat_interleave(f // groups).repeat(2)
+        onehot = F.one_hot(lane_group, groups).to(torch.float32)  # (2f, G)
+        count = 2 * h * w * 2 * (f // groups)
+        mean = (s1 @ onehot) / count
+        var = (s2 @ onehot) / count - mean * mean
+        inv = torch.rsqrt(var + 1e-6)
+        scale = (inv @ onehot.T) * self.norm.weight.repeat(2)  # (B, 2f)
+        shift = self.norm.bias.repeat(2) - (mean @ onehot.T) * scale
+        yf = y.to(torch.float32).mul_(scale[:, None, None]).add_(shift[:, None, None])
+        return F.relu(yf.to(self.dtype))
+
+
 class AdvocGenerator(nn.Module):
     """U-Net over the normalized-dB heuristic estimate, residual head.
 
@@ -138,9 +196,10 @@ class AdvocGenerator(nn.Module):
         super().__init__()
         if cfg.fast_head:
             raise NotImplementedError("fast_head is not ported yet (ROADMAP.md queue A)")
-        if cfg.packed_tail:
-            raise NotImplementedError(
-                "packed_tail is not ported yet (ROADMAP.md queue A; kernel B4)"
+        if cfg.packed_tail and (cfg.upsample != "convtranspose" or cfg.head_kernel != 1):
+            raise ValueError(
+                "packed_tail requires upsample='convtranspose' and "
+                f"head_kernel=1 (got {cfg.upsample!r}, {cfg.head_kernel})"
             )
         p = cfg.freq_pack
         if (cfg.n_freq - 1) % p:
@@ -157,7 +216,8 @@ class AdvocGenerator(nn.Module):
         x_ch = feats[-1]
         for i, f in enumerate(reversed(feats)):
             skip_ch = feats[len(feats) - 1 - i]
-            self.ups.append(_Up(x_ch + skip_ch, f, cfg))
+            up = _PackedTailUp if cfg.packed_tail and i == len(feats) - 1 else _Up
+            self.ups.append(up(x_ch + skip_ch, f, cfg))
             x_ch = f
         k = cfg.head_kernel
         if k % 2 == 0:
@@ -202,9 +262,29 @@ class AdvocGenerator(nn.Module):
             skips.append(x)
         x = F.relu(_conv(x, self.bottleneck, dt))
         for i, up in enumerate(self.ups):
-            x = up(torch.cat([x, skips[len(skips) - 1 - i].to(x.dtype)], dim=1))
-        delta = _conv(x, self.head, dt).to(torch.float32)  # (B, p, T, W)
-        delta = delta.permute(0, 2, 3, 1).reshape(b, t, n_bins)
+            skip = skips[len(skips) - 1 - i].to(x.dtype)
+            if isinstance(up, _PackedTailUp):
+                # The concat written directly in NHWC order, B4's input.
+                cat = x.new_empty((b, x.shape[2], x.shape[3], x.shape[1] + skip.shape[1]))
+                cat[..., : x.shape[1]] = x.permute(0, 2, 3, 1)
+                cat[..., x.shape[1] :] = skip.permute(0, 2, 3, 1)
+                x = up(cat)
+            else:
+                x = up(torch.cat([x, skip], dim=1))
+        if cfg.packed_tail:
+            # 1×1 head in the packed layout: the block-diagonal (2f → 2p)
+            # product maps lane q·f + c to lane q·p + k with the shared
+            # weights, and flattening (w, q, k) is the bin axis.
+            f = x.shape[-1] // 2
+            wh = self.head.weight[:, :, 0, 0].T  # (f, p)
+            wblk = wh.new_zeros((2 * f, 2 * p))
+            wblk[:f, :p] = wh
+            wblk[f:, p:] = wh
+            delta = (x @ wblk.to(dt) + self.head.bias.repeat(2).to(dt)).to(torch.float32)
+            delta = delta.reshape(b, t, n_bins)
+        else:
+            delta = _conv(x, self.head, dt).to(torch.float32)  # (B, p, T, W)
+            delta = delta.permute(0, 2, 3, 1).reshape(b, t, n_bins)
         repaired = torch.clamp(body + delta, 0.0, 1.0)
         return torch.cat([repaired, nyquist], dim=-1)
 

@@ -1,0 +1,159 @@
+"""Fused featurizer, waveform → r9y9 normalized mel: a CUDA kernel and its plain version.
+
+Replaces ``advoc_tpu/ops/pallas/featurizer.py:fused_melspec`` (B3), the JAX
+package's one-pass featurizer. Its function: reflect-pad the audio by
+n_fft/2, cut it into hop blocks, and for frame i take the windowed DFT of
+blocks i..i+3 as four banded (frames, hop) @ (hop, F_KEPT) products (the
+Hann window folded into the cos/sin maps, only the F_KEPT = 384 bins the
+mel filterbank can reach), then |·|, the 80-band mel, dB, normalize and
+clip. It yields L//hop frames, not 1 + L//hop.
+
+Design on Hopper (``csrc/featurizer.cu``): one CTA per (row, 64-frame
+tile). The tile's (64 + 3) × hop audio window is copied into shared memory
+once (68.6 KB at hop 256, the reflect padding done by the index map), so
+frames never exist in device memory. The cos/sin maps (2 × 1024 × 384
+fp32, 3.1 MB) stay in L2 and stream through shared memory in 16-row K
+slices. The products are fp32 FMA, not TF32 or bf16: the featurizer's dB
+scale turns the cancellation in quiet bins into large errors at reduced
+precision (the JAX kernel records 0.22 max error in normalized dB for the
+MXU's bf16 default, 1e-3 at full precision). Bins go in chunks of 64: the
+magnitude is taken in registers, staged in shared memory, and folded into
+per-thread mel sums that stay in registers across the chunks; only the
+(64, 80) dB / normalize / clip epilogue is written.
+
+Bound: operations. Per frame 2·2·n_fft·F_KEPT + 2·F_KEPT·80 FLOP; at
+B=128 × 65536 samples (32768 frames) ≈ 53.6 GFLOP against ≈ 47 MB of audio,
+maps and mel, so ≈ 0.054 ms at the H100's 989 TFLOP/s dense bf16 rate and
+≈ 0.80 ms at the 67 TFLOP/s of the fp32 CUDA cores the kernel uses.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from advoc_tpu_torch.ops import reference as ref
+from advoc_tpu_torch.ops.kernels import _build
+from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
+
+Tensor = torch.Tensor
+
+F_KEPT = 384  # rFFT bins kept (mel support ends at bin 353 for fmax=7600)
+MEL_PAD = 128  # mel map padded to 128 columns, as in the JAX package
+
+
+@functools.lru_cache(maxsize=4)
+def _kernel_consts(params: AudioParams):
+    """(W_cos, W_sin, mel_T) float32, window folded into the DFT matrices:
+    (n_fft, F_KEPT), (n_fft, F_KEPT), (F_KEPT, MEL_PAD)."""
+    n_fft, hop = params.n_fft, params.hop_length
+    assert n_fft % hop == 0 and n_fft // hop == 4, "kernel assumes 4 bands"
+    win = ref.hann_window(params.win_length)
+    if params.win_length < n_fft:
+        lpad = (n_fft - params.win_length) // 2
+        win = np.pad(win, (lpad, n_fft - params.win_length - lpad))
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(F_KEPT, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    w_cos = (win[:, None] * np.cos(ang)).astype(np.float32)
+    w_sin = (win[:, None] * -np.sin(ang)).astype(np.float32)
+    fb = ref.create_mel_filterbank(params)
+    assert np.allclose(fb[:, F_KEPT:], 0.0), "mel filterbank has support above the kept bins"
+    mel_t = np.zeros((F_KEPT, MEL_PAD), np.float32)
+    mel_t[:, : params.n_mels] = fb[:, :F_KEPT].T
+    return w_cos, w_sin, mel_t
+
+
+@functools.lru_cache(maxsize=8)
+def _consts_on(params: AudioParams, device: torch.device) -> tuple[Tensor, Tensor, Tensor]:
+    return tuple(torch.as_tensor(c, device=device) for c in _kernel_consts(params))
+
+
+def _check(wav: Tensor, params: AudioParams) -> None:
+    if params.n_fft != 4 * params.hop_length:
+        raise ValueError("the fused featurizer needs n_fft == 4 · hop_length")
+    if wav.ndim < 1 or wav.shape[-1] <= params.n_fft // 2:
+        raise ValueError(
+            f"the fused featurizer reflect-pads by n_fft/2 = {params.n_fft // 2}: "
+            f"needs more than that many samples, got shape {tuple(wav.shape)}"
+        )
+
+
+def _normalize(mel: Tensor, params: AudioParams) -> Tensor:
+    db = 20.0 * torch.log10(torch.clamp(mel, min=params.amp_floor)) - params.ref_level_db
+    return torch.clamp((db - params.min_level_db) / -params.min_level_db, 0.0, 1.0)
+
+
+def fused_melspec_plain(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Tensor:
+    """The kernel's function in plain PyTorch fp32: (..., L) → (..., L//hop, n_mels).
+
+    Reflect pad n_fft/2 on both sides, zero pad to whole hop blocks, frames
+    as four banded products over hop blocks, then |·|, mel, dB, normalize
+    and clip. The CPU path of :func:`fused_melspec_kernel` and the
+    reference the kernel is held to.
+    """
+    _check(wav, params)
+    if wav.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("fused_melspec_plain needs allow_tf32 False (true fp32)")
+    hop, pad = params.hop_length, params.n_fft // 2
+    lead, length = wav.shape[:-1], wav.shape[-1]
+    n = length // hop
+    x = wav.reshape(-1, length).to(torch.float32)
+    xp = F.pad(x, (pad, pad), mode="reflect")
+    needed = (n + 3) * hop
+    xp = F.pad(xp, (0, max(0, needed - xp.shape[1])))[:, :needed]
+    blocks = xp.reshape(x.shape[0], n + 3, hop)
+    w_cos, w_sin, mel_t = _consts_on(params, wav.device)
+    re = sum(blocks[:, k : k + n] @ w_cos[k * hop : (k + 1) * hop] for k in range(4))
+    im = sum(blocks[:, k : k + n] @ w_sin[k * hop : (k + 1) * hop] for k in range(4))
+    mel = torch.sqrt(re * re + im * im) @ mel_t[:, : params.n_mels]
+    return _normalize(mel, params).reshape(lead + (n, params.n_mels))
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("featurizer")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_melspec.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, p]
+    lib.fused_melspec.restype = i
+    return lib
+
+
+def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Tensor:
+    """(..., L) float32 waveform → (..., L//hop, n_mels) normalized mel.
+
+    On a CUDA tensor: the CUDA kernel, one launch on the current stream,
+    counted in ``fused_melspec_kernel.launches``; it raises on a tensor or
+    AudioParams the kernel does not take, or a failed launch. On a CPU
+    tensor: the plain version, :func:`fused_melspec_plain`.
+    """
+    _check(wav, params)
+    if not wav.is_cuda:
+        return fused_melspec_plain(wav, params)
+    if wav.dtype != torch.float32:
+        raise ValueError("fused_melspec_kernel needs a float32 waveform")
+    hop = params.hop_length
+    if hop % 4 or params.n_mels > 80:
+        raise ValueError("fused_melspec_kernel needs hop % 4 == 0 and n_mels <= 80")
+    lead, length = wav.shape[:-1], wav.shape[-1]
+    x = wav.reshape(-1, length).contiguous()
+    b, n = x.shape[0], length // hop
+    if b * max(length, n * params.n_mels) >= 2**31:
+        raise ValueError("fused_melspec_kernel indexes with 32-bit offsets")
+    w_cos, w_sin, mel_t = _consts_on(params, wav.device)
+    out = torch.empty((b, n, params.n_mels), dtype=torch.float32, device=wav.device)
+    code = _lib().fused_melspec(
+        x.data_ptr(), w_cos.data_ptr(), w_sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
+        b, length, hop, params.n_mels, params.amp_floor, params.ref_level_db,
+        params.min_level_db, torch.cuda.current_stream(wav.device).cuda_stream,
+    )
+    _build.check(_lib(), code, "fused_melspec")
+    fused_melspec_kernel.launches += 1
+    return out.reshape(lead + (n, params.n_mels))
+
+
+fused_melspec_kernel.launches = 0

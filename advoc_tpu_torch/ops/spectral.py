@@ -189,12 +189,19 @@ def magspec_to_r9y9_melspec(mag: Tensor, params: AudioParams = DEFAULT_PARAMS) -
 def waveform_to_r9y9_melspec(
     x: Tensor, params: AudioParams = DEFAULT_PARAMS, impl: str = "xla"
 ) -> Tensor:
-    """(..., L) waveform → (..., 1 + L//hop, n_mels) r9y9 normalized mel."""
+    """(..., L) waveform → (..., T, n_mels) r9y9 normalized mel.
+
+    impl="xla" (default): the STFT path, T = 1 + L//hop. impl="kernel": the
+    fused featurizer of :mod:`advoc_tpu_torch.ops.kernels.featurizer` (the
+    CUDA kernel on a CUDA tensor, its plain version on the CPU), the
+    counterpart of the JAX ``impl="pallas"``: T = L//hop.
+    """
+    if impl == "kernel":
+        from advoc_tpu_torch.ops.kernels.featurizer import fused_melspec_kernel
+
+        return fused_melspec_kernel(x, params)
     if impl == "pallas":
-        raise NotImplementedError(
-            "the fused featurizer kernel (advoc_tpu/ops/pallas/featurizer.py) "
-            "is not ported yet: ROADMAP.md queue B3"
-        )
+        raise ValueError("the port spells the fused featurizer impl='kernel'")
     if impl != "xla":
         raise ValueError(f"unknown impl {impl!r}")
     return magspec_to_r9y9_melspec(waveform_to_magspec(x, params), params)

@@ -3,24 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from ``advoc_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, then drives the
-offline ``Vocoder`` at the full default width (random weights from a seed) on
-B=128 × 256-frame mels and on one 1024-frame utterance, and checks that the
-G-L kernel carried that path and that the waveform is right. Prints one line
-per check, the card's name and power limit, a JSON line of kernel numbers,
-and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
-exits nonzero; without a CUDA device it exits 1 and prints no result.
-Imports torch, numpy and the port only.
+Builds every CUDA kernel of the port from ``advoc_tpu_torch/csrc`` (one
+``nvcc`` per source, all at once) and holds each kernel against its plain
+PyTorch version on the card: fast G-L, the fused featurizer and the
+packed-tail transpose-conv. Then it drives two paths at the full default
+width (random weights from a seed), each with the kernel counts set to 0
+just before it and read just after:
+
+* the offline ``Vocoder`` on B=128 × 256-frame mels and on one 1024-frame
+  utterance (the G-L kernel);
+* copy synthesis, wav → ``waveform_to_r9y9_melspec(impl="kernel")`` →
+  ``Vocoder`` with ``AdvocGenerator(AdvocConfig(packed_tail=True))`` → wav,
+  on the same two sizes as audio (all three kernels).
+
+It checks that the waveforms are right, holds the packed-tail generator to
+the default one on the same weights, times every kernel beside its plain
+version, its bound and the library call, and traces one call of each path.
+Prints one line per check, the card's name and power limit, a JSON line of
+kernel numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
+failed phase exits nonzero; without a CUDA device it exits 1 and prints no
+result. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -83,6 +96,30 @@ def gl_bytes(b: int, t: int, f: int) -> float:
     return 4 * (b * t * f + 4 * 4 * HOP * f + (t + 3) * HOP + b * t * HOP)
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least ms the card could take: bf16 tensor-core rate or HBM rate."""
+    ops_ms = 1e3 * flops / (BF16_TC_TFLOPS * 1e12)
+    bytes_ms = 1e3 * nbytes / (HBM_TBPS * 1e12)
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def feat_work(b: int, length: int) -> tuple[float, float]:
+    """FLOP and bytes of one fused-featurizer call: the DFT products over 384
+    bins and the mel product per frame; audio, the two maps and the mel map
+    read once, the (B, L//hop, 80) mel written once."""
+    n = b * (length // HOP)
+    flops = n * (2 * 2 * 4 * HOP * 384 + 2 * 384 * 80)
+    return flops, 4 * (b * length + 2 * 4 * HOP * 384 + 384 * 128 + n * 80)
+
+
+def packed_up_work(b: int, h: int, w: int, cin: int, f: int) -> tuple[float, float]:
+    """FLOP and bytes of one packed_up call: 4 taps · cin MACs per output
+    element; x (bf16) and the f32 weights read once, y (bf16) and the sums
+    written once."""
+    out = b * 2 * h * w * 2 * f
+    return out * 4 * cin * 2, 2 * b * h * w * cin + 4 * (16 * cin * f + f) + 2 * out + 8 * b * 2 * f
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -92,7 +129,9 @@ def main() -> int:
     from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
     from advoc_tpu_torch.ops import spectral as sp
     from advoc_tpu_torch.ops.kernels import _build
+    from advoc_tpu_torch.ops.kernels.featurizer import fused_melspec_kernel, fused_melspec_plain
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
+    from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
 
     dev = torch.device("cuda")
@@ -109,12 +148,21 @@ def main() -> int:
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    for name in sources:
-        _build.build(name)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.build, sources))
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s")
+    counted = (griffin_lim_kernel, fused_melspec_kernel, packed_up_kernel)
+
+    def zero_counts() -> None:
+        for k in counted:
+            k.launches = 0
+
+    def audio(b: int, length: int, seed: int) -> torch.Tensor:
+        """(b, length) rows cut from one synthetic signal."""
+        return torch.tensor(synthetic_speech(seed, b * length), device=dev).reshape(b, length)
 
     def mels(b: int, t: int, seed: int) -> torch.Tensor:
-        wav = torch.tensor(synthetic_speech(seed, b * t * HOP), device=dev)
+        wav = audio(1, b * t * HOP, seed)[0]
         return sp.waveform_to_r9y9_melspec(wav)[: b * t].reshape(b, t, 80)
 
     def mel_l1(wav: torch.Tensor, mel: torch.Tensor) -> float:
@@ -174,6 +222,8 @@ def main() -> int:
               f"30-iter mel L1 kernel {l1k:.5f} plain {l1p:.5f}")
         if (b, t) == (128, 256):
             gl_mag = mag
+        elif (b, t) == (1, 1024):
+            gl_mag_long = mag  # B2's shape: one utterance past 256 frames
 
     # Other AudioParams the kernel takes (n_fft = 4 · hop): hop 512 on the
     # float4 path with the Nyquist bin dropped, hop 250 on the masked scalar
@@ -189,13 +239,105 @@ def main() -> int:
     gl_ms = cuda_ms(lambda: griffin_lim_kernel(gl_mag, 30, 0.99))
     plain_ms = cuda_ms(lambda: griffin_lim_plain(gl_mag, 30, 0.99))
     flops = gl_flops(128, 256, 512, 30)
-    bytes_ms = 1e3 * gl_bytes(128, 256, 512) / (HBM_TBPS * 1e12)
-    bound_tc = max(1e3 * flops / (BF16_TC_TFLOPS * 1e12), bytes_ms)
-    bound_fp32 = max(1e3 * flops / (FP32_TFLOPS * 1e12), bytes_ms)
+    bound_tc, _ = bound(flops, gl_bytes(128, 256, 512))
+    bound_fp32 = max(1e3 * flops / (FP32_TFLOPS * 1e12),
+                     1e3 * gl_bytes(128, 256, 512) / (HBM_TBPS * 1e12))
     print(f"griffin_lim B=128 T=256 F=512 30 iters: kernel {gl_ms:.2f} ms "
           f"({flops / gl_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
           f"{flops / 1e12:.3f} TFLOP; bound {bound_tc:.2f} ms at bf16 tensor cores, "
           f"fp32 CUDA-core ceiling {bound_fp32:.2f} ms")
+
+    # -- 2b. Fused featurizer (B3) against its plain version --------------------
+    # fp32 FMA against fp32 matmuls over the same 1024 samples: max|Δ| ≤ 1e-3 in
+    # normalized units; against the STFT path (impl="xla") on the first L//hop
+    # frames ≤ 3e-3 (tests/test_pallas.py's bound between the two paths).
+    feat_err = 0.0
+    for b, length in ((128, 256 * HOP), (2, 300 * HOP + 77), (1, 1024 * HOP)):
+        wav = audio(b, length, seed=b + length)
+        got = fused_melspec_kernel(wav)
+        torch.cuda.synchronize()
+        err = float((got - fused_melspec_plain(wav)).abs().max())
+        err_xla = float((got - sp.waveform_to_r9y9_melspec(wav)[:, : length // HOP]).abs().max())
+        require(tuple(got.shape) == (b, length // HOP, 80) and err <= 1e-3 and err_xla <= 3e-3,
+                f"featurizer B={b} L={length}: shape {tuple(got.shape)}, "
+                f"max|Δ| {err} vs plain, {err_xla} vs xla")
+        print(f"featurizer B={b} L={length}: max|Δ| vs plain {err:.2e}, vs impl='xla' "
+              f"{err_xla:.2e}")
+        if b == 128:
+            feat_err, feat_wav = err, wav
+    feat_ms = cuda_ms(lambda: fused_melspec_kernel(feat_wav))
+    feat_plain_ms = cuda_ms(lambda: fused_melspec_plain(feat_wav))
+    feat_xla_ms = cuda_ms(lambda: sp.waveform_to_r9y9_melspec(feat_wav))
+    feat_flops, feat_bytes = feat_work(128, 256 * HOP)
+    feat_bound, feat_by = bound(feat_flops, feat_bytes)
+    print(f"featurizer B=128 L={256 * HOP}: kernel {feat_ms:.3f} ms "
+          f"({feat_flops / feat_ms / 1e9:.1f} TFLOP/s), plain {feat_plain_ms:.3f} ms, "
+          f"impl='xla' {feat_xla_ms:.3f} ms; bound {feat_bound:.4f} ms ({feat_by}), "
+          f"fp32 CUDA-core ceiling {1e3 * feat_flops / (FP32_TFLOPS * 1e12):.3f} ms")
+
+    # -- 2c. Packed-tail transpose-conv (B4) against its plain version ----------
+    # y within 1e-2 × peak (about two bf16 ulps: the two sum in other orders
+    # before rounding, so a value can round to the neighbouring bf16); Σy, Σy²
+    # within 1e-3 relative of f32 sums of the kernel's own output.
+    def up_inputs(b, h, w, cin, f, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((b, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
+        wt = torch.randn((4, 4, cin, f), generator=g, device=dev) / (16 * cin) ** 0.5
+        return x, wt, 0.1 * torch.randn(f, generator=g, device=dev)
+
+    up_err = 0.0
+    # The full-width finest level: cin 192 = 128 from the level below + 64 skip.
+    for b, h, w, cin, f, tm in ((128, 128, 128, 192, 64, 16), (128, 128, 128, 128, 64, 16),
+                                (2, 32, 72, 24, 40, 8)):
+        x, wt, bias = up_inputs(b, h, w, cin, f, seed=h + w)
+        y, s1, s2 = packed_up_kernel(x, wt, bias, f=f, tm=tm, with_stats=True)
+        torch.cuda.synchronize()
+        want = packed_up_plain(x, wt, bias, f=f, tm=tm).float()
+        err = float((y.float() - want).abs().max())
+        peak = float(want.abs().max())
+        yf = y.float()
+        r1 = float(((s1 - yf.sum(dim=(1, 2))).abs() / yf.abs().sum(dim=(1, 2))).max())
+        r2 = float(((s2 - (yf * yf).sum(dim=(1, 2))).abs() / (yf * yf).sum(dim=(1, 2))).max())
+        require(tuple(y.shape) == (b, 2 * h, w, 2 * f) and err <= 1e-2 * peak
+                and r1 <= 1e-3 and r2 <= 1e-3,
+                f"packed_up B={b} H={h} W={w} cin={cin} f={f} tm={tm}: max|Δ| {err} "
+                f"(peak {peak}), Σy {r1}, Σy² {r2}")
+        print(f"packed_up B={b} H={h} W={w} cin={cin} f={f} tm={tm}: max|Δ| {err:.3e} "
+              f"= {err / peak:.2e} × peak; Σy rel {r1:.2e}, Σy² rel {r2:.2e}")
+        if (h, w, cin, f) == (128, 128, 192, 64):  # the full-width finest level
+            up_err, up_args = err, (x, wt, bias)
+        if cin == 128:  # the same layer with a 128-channel concat, timed for comparison
+            up128_ms = cuda_ms(lambda: packed_up_kernel(x, wt, bias, f=f, tm=tm, with_stats=True))
+        del y, s1, s2, want, yf
+    x, wt, bias = up_args
+    up_ms = cuda_ms(lambda: packed_up_kernel(x, wt, bias, f=64, tm=16, with_stats=True))
+    up_plain_ms = cuda_ms(lambda: packed_up_plain(x, wt, bias, f=64, tm=16, with_stats=True))
+    # The library route of the default config: cuDNN's transpose-conv on the
+    # same input and weights (NCHW), then the Σy, Σy² pass its GroupNorm needs.
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    w_t = wt.flip(0, 1).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+    b_t = bias.to(torch.bfloat16)
+
+    def library_up():
+        yt = torch.nn.functional.conv_transpose2d(x_nchw, w_t, b_t, stride=2, padding=1)
+        yf = yt.float()
+        return yt, yf.sum(dim=(2, 3)), (yf * yf).sum(dim=(2, 3))
+
+    lib_y = library_up()[0]
+    lib_err = float((lib_y.permute(0, 2, 3, 1).reshape(128, 256, 128, 128).float()
+                     - packed_up_kernel(x, wt, bias, f=64).float()).abs().max())
+    del lib_y
+    up_lib_ms = cuda_ms(library_up)
+    up_conv_ms = cuda_ms(lambda: torch.nn.functional.conv_transpose2d(
+        x_nchw, w_t, b_t, stride=2, padding=1))
+    up_flops, up_bytes = packed_up_work(128, 128, 128, 192, 64)
+    up_bound, up_by = bound(up_flops, up_bytes)
+    print(f"packed_up B=128 H=W=128 cin=192 f=64: kernel {up_ms:.3f} ms "
+          f"({up_flops / up_ms / 1e9:.1f} TFLOP/s), plain {up_plain_ms:.3f} ms, cuDNN "
+          f"conv_transpose2d + Σy/Σy² {up_lib_ms:.3f} ms (conv alone {up_conv_ms:.3f} ms, "
+          f"max|Δ| to the kernel {lib_err:.3e}); bound {up_bound:.4f} ms ({up_by}); "
+          f"at cin=128 the kernel takes {up128_ms:.3f} ms")
+    del x, wt, bias, up_args, x_nchw
 
     # -- 3. Main path: full-width Vocoder ---------------------------------------
     cfg = AdvocConfig()
@@ -206,7 +348,7 @@ def main() -> int:
     batch = mels(128, 256, seed=1)
     utter = mels(1, 1024, seed=2)[0]
 
-    griffin_lim_kernel.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     wav = voc(batch)
     wav_long = voc(utter)
@@ -247,28 +389,94 @@ def main() -> int:
         }
     call_ms = cuda_ms(lambda: voc(batch))
     long_ms = cuda_ms(lambda: voc(utter))
+    gl_long_ms = cuda_ms(lambda: griffin_lim_kernel(gl_mag_long, 30, 0.99))
+    gl_long_plain_ms = cuda_ms(lambda: griffin_lim_plain(gl_mag_long, 30, 0.99))
     audio_s = 128 * 256 * HOP / SR
     print("stages B=128×256: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     print(f"vocoder call B=128×256: {call_ms:.2f} ms = {audio_s / (call_ms / 1e3):.1f}× real time; "
           f"1024-frame utterance {long_ms:.2f} ms = "
           f"{1024 * HOP / SR / (long_ms / 1e3):.1f}× real time")
+    gl_long_bound, _ = bound(gl_flops(1, 1024, 512, 30), gl_bytes(1, 1024, 512))
+    print(f"griffin_lim B=1 T=1024 F=512 30 iters (B2's shape): kernel {gl_long_ms:.2f} ms, "
+          f"plain {gl_long_plain_ms:.2f} ms, bound {gl_long_bound:.4f} ms at bf16 tensor cores")
 
-    # Device trace of one call: the busy share, and the kernels that take the
-    # time (kernels run on one stream, so their sum is the busy time).
-    wall_ms, by_name = device_trace(lambda: voc(batch))
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    if busy_ms > 0:
-        gl_trace = sum(ms for name, (ms, _) in by_name.items()
-                       if "synth_ola_kernel" in name or "analyze_project_kernel" in name)
-        print(f"device trace B=128×256: wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms, "
-              f"busy share {busy_ms / wall_ms:.3f}, G-L kernels {gl_trace:.2f} ms")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        for name, (ms, n) in top:
-            print(f"  {ms:8.2f} ms {n:4d}×  {name[:90]}")
-    else:
-        print("device trace: not measured (the profiler recorded no device time)")
+    def trace(name: str, fn, kernel_names: tuple[str, ...]) -> None:
+        """Device trace of one call: the busy share, and the kernels that take
+        the time (kernels run on one stream, so their sum is the busy time)."""
+        wall_ms, by_name = device_trace(fn)
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        if busy_ms <= 0:
+            print(f"device trace {name}: not measured (the profiler recorded no device time)")
+            return
+        ours = sum(ms for k, (ms, _) in by_name.items() if any(n in k for n in kernel_names))
+        print(f"device trace {name}: wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms, "
+              f"busy share {busy_ms / wall_ms:.3f}, port kernels {ours:.2f} ms")
+        for k, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            print(f"  {ms:8.2f} ms {n:4d}×  {k[:90]}")
 
-    # -- 4. Kernels line, then the result ---------------------------------------
+    gl_names = ("synth_ola_kernel", "analyze_project_kernel")
+    trace("vocoder B=128×256", lambda: voc(batch), gl_names)
+
+    # -- 4. Packed-tail generator against the default one, same weights ----------
+    # tests/test_models.py's bf16 bound between the two tails: 4e-2 absolute,
+    # mean |Δ| < 5e-3 (the two round the transpose-conv in other places).
+    gen_pk = AdvocGenerator(dataclasses.replace(cfg, packed_tail=True))
+    gen_pk.load_state_dict(gen.state_dict(), strict=True)
+    gen_pk = gen_pk.to(dev).eval()
+    zero_counts()
+    with torch.inference_mode():
+        out_pk, out_def = gen_pk(est_norm), gen(est_norm)
+    torch.cuda.synchronize()
+    d = (out_pk - out_def).abs()
+    require(packed_up_kernel.launches == 1, f"B4 launches: {packed_up_kernel.launches}")
+    require(float(d.max()) <= 4e-2 and float(d.mean()) < 5e-3,
+            f"packed-tail vs default generator: max {float(d.max())}, mean {float(d.mean())}")
+    print(f"packed-tail generator vs default B=128×256, same weights: max|Δ| "
+          f"{float(d.max()):.3e}, mean|Δ| {float(d.mean()):.3e}")
+    with torch.inference_mode():
+        unet_pk_ms = cuda_ms(lambda: gen_pk(est_norm))
+    del out_pk, out_def, d
+
+    # -- 5. The slice's path: wav → fused featurizer → packed-tail Vocoder → wav
+    voc_pk = Vocoder(gen_pk, device="cuda")
+    wav_in = audio(128, 256 * HOP, seed=3)
+    wav_in_long = audio(1, 1024 * HOP, seed=4)[0]
+
+    def copy_synth(x: torch.Tensor) -> torch.Tensor:
+        return voc_pk(sp.waveform_to_r9y9_melspec(x, impl="kernel"))
+
+    zero_counts()
+    out = copy_synth(wav_in)
+    out_long = copy_synth(wav_in_long)
+    torch.cuda.synchronize()
+    slice_launches = {k.__name__: k.launches for k in counted}
+    require(slice_launches == {"griffin_lim_kernel": 2 * (2 * 30 + 1),
+                               "fused_melspec_kernel": 2, "packed_up_kernel": 2},
+            f"kernel launches on the slice's path: {slice_launches}")
+    for name, w, shape in (("batch", out, (128, 256 * HOP)), ("utterance", out_long, (1024 * HOP,))):
+        require(tuple(w.shape) == shape, f"slice {name} shape {tuple(w.shape)}")
+        require(bool(torch.isfinite(w).all()), f"slice {name} finite")
+        require(float(w.abs().max()) < 1.0, f"slice {name} peak {float(w.abs().max())} < 1")
+    slice_l1 = []
+    for x_in, w in ((wav_in, out), (wav_in_long, out_long)):
+        mel = fused_melspec_kernel(x_in)
+        l1_pk, l1_def = mel_l1(w, mel), mel_l1(voc(mel), mel)
+        require(abs(l1_pk - l1_def) <= 2e-3,
+                f"slice mel L1 {l1_pk} vs default-generator Vocoder {l1_def}")
+        slice_l1.append((l1_pk, l1_def))
+    print(f"slice wav→mel→wav: launches {slice_launches}; mel L1 batch 128×256 "
+          f"{slice_l1[0][0]:.5f} (default generator {slice_l1[0][1]:.5f}), 1024-frame "
+          f"utterance {slice_l1[1][0]:.5f} (default generator {slice_l1[1][1]:.5f})")
+    slice_ms = cuda_ms(lambda: copy_synth(wav_in))
+    slice_long_ms = cuda_ms(lambda: copy_synth(wav_in_long))
+    print(f"U-Net B=128×256: default {stages['unet_ms']:.2f} ms, packed tail {unet_pk_ms:.2f} ms")
+    print(f"slice call wav→wav B=128×256: {slice_ms:.2f} ms = "
+          f"{audio_s / (slice_ms / 1e3):.1f}× real time; 1024-frame utterance "
+          f"{slice_long_ms:.2f} ms = {1024 * HOP / SR / (slice_long_ms / 1e3):.1f}× real time")
+    trace("slice wav→wav B=128×256", lambda: copy_synth(wav_in),
+          gl_names + ("featurizer_kernel", "packed_up_kernel", "reduce_parts_kernel"))
+
+    # -- 6. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
         "name": "griffin_lim",
         "route": "cuda",
@@ -278,7 +486,8 @@ def main() -> int:
             "advoc_tpu/ops/pallas/griffin_lim.py:362 griffin_lim_pallas",
             "advoc_tpu/ops/pallas/griffin_lim.py:482 griffin_lim_pallas_tiled",
         ],
-        "launches": launches,
+        "launches": slice_launches["griffin_lim_kernel"],
+        "launches_vocoder_path": launches,
         "checks": "pass",
         "max_abs_err": max(main_errs),
         "ms": gl_ms,
@@ -286,7 +495,39 @@ def main() -> int:
         "bound_ms": bound_tc,
         "bound_by": "operations",
         "bound_ms_fp32_cuda_cores": bound_fp32,
+        "ms_b1_t1024": gl_long_ms,
+        "plain_ms_b1_t1024": gl_long_plain_ms,
+        "bound_ms_b1_t1024": gl_long_bound,
         "library_ms": None,
+    }, {
+        "name": "fused_melspec",
+        "route": "cuda",
+        "source": "advoc_tpu_torch/csrc/featurizer.cu",
+        "replaces": "advoc_tpu/ops/pallas/featurizer.py:123",
+        "launches": slice_launches["fused_melspec_kernel"],
+        "checks": "pass",
+        "max_abs_err": feat_err,
+        "ms": feat_ms,
+        "plain_ms": feat_plain_ms,
+        "bound_ms": feat_bound,
+        "bound_by": feat_by,
+        "xla_ms": feat_xla_ms,
+        "library_ms": None,
+    }, {
+        "name": "packed_up",
+        "route": "cuda",
+        "source": "advoc_tpu_torch/csrc/packed_up.cu",
+        "replaces": "advoc_tpu/ops/pallas/packed_up.py:141",
+        "launches": slice_launches["packed_up_kernel"],
+        "checks": "pass",
+        "max_abs_err": up_err,
+        "ms": up_ms,
+        "plain_ms": up_plain_ms,
+        "bound_ms": up_bound,
+        "bound_by": up_by,
+        "library_ms": up_lib_ms,
+        "library": "F.conv_transpose2d (cuDNN) + Σy, Σy² pass",
+        "library_conv_only_ms": up_conv_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,11 @@ import torch
 
 from advoc_tpu_torch.data.synthetic import synthetic_speech
 from advoc_tpu_torch.infer import Vocoder
+from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
 from advoc_tpu_torch.ops import spectral as sp
+from advoc_tpu_torch.ops.kernels import featurizer as tfeat
 from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
+from advoc_tpu_torch.ops.kernels import packed_up as tpu
 from advoc_tpu_torch.ops.reference import AudioParams
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +95,85 @@ def test_griffin_lim_kernel_rejects_what_it_cannot_take(dev):
         tgl.griffin_lim_kernel(mag.double(), 1, 0.99)
     with pytest.raises(ValueError, match="contiguous float32"):
         tgl.griffin_lim_kernel(mag[:, ::2], 1, 0.99)
+
+
+@pytest.mark.parametrize("shape", [(2, 300 * 256 + 77), (1, 64 * 256), (3, 1, 5 * 256 + 3)])
+def test_featurizer_kernel_matches_plain(dev, shape):
+    """Ragged tiles, L not a multiple of hop, extra lead dims. fp32 FMA
+    against fp32 matmuls: 1e-3 in normalized units (chip_smoke.py states the
+    measured margin); 3e-3 against the STFT path (tests/test_pallas.py)."""
+    n = int(np.prod(shape))
+    wav = torch.tensor(synthetic_speech(1, n), device=dev).reshape(shape)
+    before = tfeat.fused_melspec_kernel.launches
+    got = sp.waveform_to_r9y9_melspec(wav, impl="kernel")
+    torch.cuda.synchronize()
+    assert tfeat.fused_melspec_kernel.launches == before + 1
+    assert got.shape == shape[:-1] + (shape[-1] // 256, 80)
+    torch.testing.assert_close(got, tfeat.fused_melspec_plain(wav), rtol=0, atol=1e-3)
+    xla = sp.waveform_to_r9y9_melspec(wav)[..., : got.shape[-2], :]
+    torch.testing.assert_close(got, xla, rtol=0, atol=3e-3)
+
+
+@pytest.mark.parametrize("b,h,w,cin,f,tm", [
+    (2, 32, 16, 16, 8, 8), (1, 64, 72, 24, 72, 16), (2, 32, 64, 128, 64, 16),
+    # cin 200 padded to 208, near the shared-memory limit; a ragged
+    # 64-channel tile at f = 40.
+    (1, 32, 40, 200, 40, 8),
+])
+def test_packed_up_kernel_matches_plain(dev, b, h, w, cin, f, tm):
+    """y within 1e-2 × peak (about two bf16 ulps: the two sum in other
+    orders before rounding); Σy, Σy² within 1e-3 relative of f32 sums of
+    the kernel's own output."""
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((b, h, w, cin)), dtype=torch.bfloat16, device=dev)
+    wt = torch.tensor(0.1 * rng.standard_normal((4, 4, cin, f)), dtype=torch.float32, device=dev)
+    bias = torch.tensor(0.1 * rng.standard_normal(f), dtype=torch.float32, device=dev)
+    before = tpu.packed_up_kernel.launches
+    y, s1, s2 = tpu.packed_up_kernel(x, wt, bias, f=f, tm=tm, with_stats=True)
+    y_only = tpu.packed_up_kernel(x, wt, bias, f=f, tm=tm)
+    torch.cuda.synchronize()
+    assert tpu.packed_up_kernel.launches == before + 2
+    want = tpu.packed_up_plain(x, wt, bias, f=f, tm=tm)
+    assert y.shape == want.shape == (b, 2 * h, w, 2 * f) and y.dtype == torch.bfloat16
+    peak = float(want.float().abs().max())
+    torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=1e-2 * peak)
+    torch.testing.assert_close(y_only, y, rtol=0, atol=0)
+    yf = y.float()
+    torch.testing.assert_close(s1, yf.sum(dim=(1, 2)), rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s2, (yf * yf).sum(dim=(1, 2)), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n_frames", [64, 16])
+def test_packed_tail_generator_takes_b4(dev, n_frames):
+    """n_frames 16 gives H // 2 = 4 at the finest level, below the TPU's
+    8-row tile: B4 still runs, at tm 4."""
+    cfg = AdvocConfig(n_frames=n_frames, width=8, depth=4)
+    g = AdvocGenerator(cfg)
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    gp = AdvocGenerator(AdvocConfig(n_frames=n_frames, width=8, depth=4, packed_tail=True))
+    gp.load_state_dict(g.state_dict())
+    g, gp = g.to(dev), gp.to(dev)
+    x = torch.tensor(np.random.default_rng(1).uniform(0, 1, (2, n_frames, 513)),
+                     dtype=torch.float32, device=dev)
+    before = tpu.packed_up_kernel.launches
+    with torch.no_grad():
+        got, want = gp(x), g(x)
+    assert tpu.packed_up_kernel.launches == before + 1
+    # tests/test_models.py's bf16 bound between the packed and default tails.
+    torch.testing.assert_close(got, want, rtol=0, atol=4e-2)
+    assert float((got - want).abs().mean()) < 5e-3
+
+
+def test_packed_up_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.zeros((1, 16, 8, 12), dtype=torch.bfloat16, device=dev)
+    wt, bias = torch.zeros((4, 4, 12, 8), device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="cin % 8"):
+        tpu.packed_up_kernel(x, wt, bias, f=8, tm=8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tpu.packed_up_kernel(x.float(), wt, bias, f=8, tm=8)
+    # A cin whose weights and rows overflow a CTA's shared memory: the
+    # launch's own error.
+    x = torch.zeros((1, 16, 8, 512), dtype=torch.bfloat16, device=dev)
+    wt = torch.zeros((4, 4, 512, 8), device=dev)
+    with pytest.raises(RuntimeError, match="packed_up failed"):
+        tpu.packed_up_kernel(x, wt, bias, f=8, tm=8)

@@ -5,6 +5,8 @@ generators get the same numpy input. Also pins each layer divergence between
 flax and torch that the converter and the port's layers account for.
 """
 
+import dataclasses
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -56,6 +58,40 @@ class TestGenerator:
         """AdvocConfig()'s widths and depth, B=2 × 256 frames, in float32."""
         want, got = _pair(256, dtype="float32")
         np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+class TestPackedTail:
+    """packed_tail=True against the JAX packed-tail generator (its XLA
+    branch on the CPU) on the same converted weights, at
+    tests/test_models.py's tolerances."""
+
+    def test_f32_small(self):
+        want, got = _pair(64, width=8, depth=4, dtype="float32", packed_tail=True)
+        np.testing.assert_allclose(got, want, atol=2e-5)
+
+    def test_bf16_small(self):
+        want, got = _pair(64, width=8, depth=4, dtype="bfloat16", packed_tail=True)
+        np.testing.assert_allclose(got, want, atol=4e-2)
+        assert np.abs(got - want).mean() < 5e-3
+
+    def test_default_state_dict_loads_and_gives_the_default_function(self):
+        """The same parameter tree as the default config: a default state
+        dict loads strictly, and in float32 both compute one function."""
+        cfg = AdvocConfig(n_frames=64, width=8, depth=4, dtype="float32")
+        g = AdvocGenerator(cfg)
+        g.reset_parameters(torch.Generator().manual_seed(0))
+        gp = AdvocGenerator(dataclasses.replace(cfg, packed_tail=True))
+        gp.load_state_dict(g.state_dict(), strict=True)
+        assert type(gp.ups[-1]).__name__ == "_PackedTailUp"
+        x = torch.tensor(np.random.default_rng(3).uniform(0, 1, (2, 64, 513)).astype(np.float32))
+        with torch.no_grad():
+            torch.testing.assert_close(gp(x), g(x), rtol=0, atol=2e-5)
+
+    @pytest.mark.parametrize("cfg", [dict(head_kernel=4), dict(upsample="subpixel")])
+    def test_invalid_config_raises_like_jax(self, cfg):
+        """The JAX generator's ValueError (tests/test_models.py pins it there)."""
+        with pytest.raises(ValueError, match="packed_tail requires"):
+            AdvocGenerator(AdvocConfig(packed_tail=True, **cfg))
 
 
 class TestLayerDivergences:
@@ -167,7 +203,7 @@ class TestInitAndModes:
         torch.testing.assert_close(h.state_dict(), g.state_dict(), rtol=0, atol=0)
 
     @pytest.mark.parametrize("cfg", [
-        dict(fast_head=True), dict(packed_tail=True), dict(upsample="subpixel"),
+        dict(fast_head=True), dict(fast_head=True, packed_tail=True), dict(upsample="subpixel"),
         dict(head_kernel=4),
     ])
     def test_unported_modes_raise(self, cfg):

@@ -18,11 +18,13 @@ from advoc_tpu.infer import Vocoder as JVocoder
 from advoc_tpu.infer.vocoder import chunked_generator_apply as j_chunked
 from advoc_tpu.models.advoc import AdvocConfig as JConfig, AdvocGenerator as JGenerator
 from advoc_tpu.ops import spectral as jsp
+from advoc_tpu.ops.pallas.featurizer import fused_melspec
 from advoc_tpu.ops.reference import DEFAULT_PARAMS as P
 from advoc_tpu_torch.ops.reference import AudioParams
 from advoc_tpu_torch.infer import StreamingVocoder, Vocoder
 from advoc_tpu_torch.infer.vocoder import chunked_generator_apply
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator, flax_to_torch_state_dict
+from advoc_tpu_torch.ops import spectral as tsp
 
 HOP = P.hop_length
 # Two G-L iterations from a zero phase: bins where the rebuilt |u| ≈ 0 have an
@@ -37,16 +39,20 @@ def mel():
     return np.asarray(jsp.waveform_to_r9y9_melspec(wav, P))  # (173, 80)
 
 
-@pytest.fixture(scope="module")
-def gens():
+def _gens(**cfg):
     """(flax apply, flax params, port generator) with the same weights."""
-    cfg = JConfig(n_frames=64, width=8, depth=4, dtype="float32")
-    g = JGenerator(cfg)
-    params = jax.jit(g.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, cfg.n_freq)))["params"]
-    tcfg = AdvocConfig(n_frames=64, width=8, depth=4, dtype="float32")
+    jcfg = JConfig(n_frames=64, width=8, depth=4, dtype="float32", **cfg)
+    g = JGenerator(jcfg)
+    params = jax.jit(g.init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, jcfg.n_freq)))["params"]
+    tcfg = AdvocConfig(n_frames=64, width=8, depth=4, dtype="float32", **cfg)
     tg = AdvocGenerator(tcfg)
     tg.load_state_dict(flax_to_torch_state_dict(jax.tree.map(np.asarray, params), tcfg))
     return (lambda p, e: g.apply({"params": p}, e)), params, tg
+
+
+@pytest.fixture(scope="module")
+def gens():
+    return _gens()
 
 
 def _mel_l1(wav, mel):
@@ -86,6 +92,21 @@ class TestAgainstJax:
         np.testing.assert_allclose(got, want, atol=RTOL_2_ITERS * np.abs(want).max())
         single = Vocoder(gens[2], chunk_frames=64, gl_iters=2, device="cpu")(mels[1])
         np.testing.assert_allclose(single.numpy(), got[1], atol=RTOL_2_ITERS * np.abs(got).max())
+
+    def test_copy_synthesis_slice(self):
+        """wav → fused featurizer → packed-tail Vocoder → wav: JAX
+        fused_melspec (interpret mode) into the JAX Vocoder, against the
+        port's impl="kernel" featurizer into its Vocoder, both on the CPU."""
+        apply, params, tg = _gens(packed_tail=True)
+        wav = loader.synthetic_speech(7, 150 * HOP + 40)
+        jmel = np.asarray(fused_melspec(jnp.asarray(wav), P, interpret=True))
+        tmel = tsp.waveform_to_r9y9_melspec(torch.tensor(wav), impl="kernel")
+        assert tmel.shape == jmel.shape == (150, 80)
+        kw = dict(chunk_frames=64, gl_iters=2, phase_impl="xla")
+        want = np.asarray(JVocoder(g_apply=apply, g_params=params, params=P, **kw)(jmel))
+        got = Vocoder(tg, device="cpu", **kw)(tmel).numpy()
+        assert got.shape == want.shape == (150 * HOP,)
+        np.testing.assert_allclose(got, want, atol=RTOL_2_ITERS * np.abs(want).max())
 
     def test_chunked_generator_apply_matches_jax(self):
         """Window starts, crossfade weights and the normalized join."""
