@@ -88,7 +88,10 @@ class Vocoder:
     Vocoder's rule for its Pallas kernels; the kernel iterates on the whole
     utterance, so no length is excluded) and the matmul scan otherwise;
     "kernel" always takes the kernel function (its plain version on the
-    CPU); "xla" always takes the matmul scan.
+    CPU); "xla" always takes the matmul scan. ``gl_precision`` is the
+    kernel form's mode: None or "default" is JAX's default split_synth (the
+    tensor-core kernel on the card), "highest" fp32 throughout; the matmul
+    scan is fp32 either way.
     ``device`` defaults to "cuda" and raises if no card is present.
     """
 
@@ -101,6 +104,7 @@ class Vocoder:
         gl_iters: int = 30,
         phase_method: str = "lws",
         phase_impl: str = "auto",
+        gl_precision: str | None = None,
         mel_projection: float | None = None,
         device=None,
         mesh=None,
@@ -116,6 +120,8 @@ class Vocoder:
             raise ValueError(f"unknown phase_method {phase_method!r}")
         if phase_impl not in ("auto", "kernel", "xla"):
             raise ValueError(f"unknown phase_impl {phase_impl!r}")
+        if gl_precision not in (None, "default", "highest"):
+            raise ValueError(f"unknown gl_precision {gl_precision!r}")
         self.device = _resolve_device(device)
         self.generator = generator.to(self.device).eval() if generator is not None else None
         self.params = params
@@ -125,6 +131,7 @@ class Vocoder:
         self.phase_method = phase_method
         self.momentum = 0.99 if phase_method == "lws" else 0.0
         self.phase_impl = phase_impl
+        self.gl_precision = "default" if gl_precision is None else gl_precision
         if mel_projection is None:
             mel_projection = 1.0 if generator is not None else 0.0
         self.mel_projection = float(mel_projection)
@@ -161,7 +168,7 @@ class Vocoder:
             # runs on exactly n_fft/2 bins.
             return spectral.griffin_lim(
                 mag, length, n_iters=self.gl_iters, momentum=self.momentum,
-                params=p, fft_impl="kernel",
+                params=p, fft_impl="kernel", precision=self.gl_precision,
                 drop_nyquist=p.fmax < 0.5 * p.sample_rate,
             )
         return spectral.griffin_lim(

@@ -12,10 +12,12 @@ Phase recovery (:func:`griffin_lim`) has two forms:
 * ``fft_impl="matmul"``: the twin of the JAX scan. Each iteration
   synthesizes through the windowed inverse-DFT maps, overlap-adds, crops to
   the signal, reflect-pads and re-analyzes; no momentum on iteration 0.
-* ``fft_impl="kernel"``: the CUDA fast-G-L kernel of
-  :mod:`advoc_tpu_torch.ops.kernels.griffin_lim` (its plain version on the
-  CPU), the counterpart of the JAX ``fft_impl="pallas"``: it iterates on the
-  uncropped overlap-add signal, optionally on 512 bins (``drop_nyquist``).
+* ``fft_impl="kernel"``: the CUDA fast-G-L kernels of
+  :mod:`advoc_tpu_torch.ops.kernels.griffin_lim` (their plain version on the
+  CPU), the counterpart of the JAX ``fft_impl="pallas"``: they iterate on
+  the uncropped overlap-add signal, optionally on 512 bins
+  (``drop_nyquist``), at ``precision`` "default" (JAX's split_synth, the
+  tensor-core kernel) unless "highest" (fp32 throughout) is asked for.
 """
 
 from __future__ import annotations
@@ -259,6 +261,7 @@ def griffin_lim(
     fft_impl: str = "matmul",
     init_phase: tuple[Tensor, Tensor] | None = None,
     drop_nyquist: bool = False,
+    precision: str | None = None,
 ) -> Tensor:
     """Griffin-Lim phase recovery: (..., T, n_freq) → (..., length) waveform.
 
@@ -266,7 +269,10 @@ def griffin_lim(
     ``init_phase`` = (cos φ, sin φ), broadcastable to the magnitude.
     ``fft_impl`` selects the form (module docstring); ``drop_nyquist`` runs
     the kernel form on the first n_freq − 1 bins, for callers whose Nyquist
-    bin is known to be negligible.
+    bin is known to be negligible. ``precision`` ("default" or "highest")
+    picks the kernel form's mode, None meaning "default" as in the JAX
+    package; the matmul form is fp32 whatever it says, as JAX's XLA loop is
+    on the CPU.
     """
     if length is None:
         length = mag.shape[-2] * params.hop_length
@@ -274,6 +280,8 @@ def griffin_lim(
     n_frames = mag.shape[-2]
     if drop_nyquist and fft_impl != "kernel":
         raise ValueError("drop_nyquist is a kernel-path option")
+    if precision not in (None, "default", "highest"):
+        raise ValueError(f"precision must be None, 'default' or 'highest', got {precision!r}")
 
     if fft_impl == "kernel":
         from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel
@@ -289,6 +297,7 @@ def griffin_lim(
         return griffin_lim_kernel(
             mag.contiguous(), n_iters=n_iters, momentum=momentum,
             init_phase=init_phase, params=params,
+            precision="default" if precision is None else precision,
         )
     if fft_impl != "matmul":
         raise ValueError(f"unknown fft_impl {fft_impl!r}")

@@ -77,16 +77,65 @@ def test_griffin_lim_kernel_other_hops(dev, hop, n_bins):
         torch.testing.assert_close(y, want, rtol=0, atol=rtol * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("t,n_bins,hop,with_init", [
+    (64, 512, 256, False), (64, 513, 256, False), (300, 513, 256, False),
+    (64, 512, 256, True), (64, 1024, 512, False), (64, 501, 250, False),
+])
+def test_griffin_lim_tc_kernel_matches_plain(dev, t, n_bins, hop, with_init):
+    """The tensor-core kernel against the split plain version. Synthesis
+    alone rounds the same operands: 1e-5 × peak. After one and two
+    iterations the two have summed in other orders, and where y lies on a
+    bf16 rounding boundary they round it to neighbouring bf16 values, which
+    the projection amplifies where the rebuilt |u| is near zero: isolated
+    samples up to 2e-2 (one) and 5e-2 (two, momentum on) × peak, 3e-4 ×
+    peak on average (chip_smoke.py states the measured margins)."""
+    q = AudioParams(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+    wav = torch.tensor(synthetic_speech(hop, 2 * t * hop), device=dev).reshape(2, -1)
+    mag = sp.waveform_to_magspec(wav, q)[:, :t, :n_bins].contiguous()
+    init = None
+    if with_init:
+        phi = torch.tensor(np.random.default_rng(0).uniform(0, 2 * np.pi, mag.shape),
+                           dtype=torch.float32, device=dev)
+        init = (torch.cos(phi), torch.sin(phi))
+    split_final = t <= 256 and init is None
+    for n_iters, momentum, rtol in ((0, 0.0, 1e-5), (1, 0.0, 2e-2), (2, 0.99, 5e-2)):
+        before = (tgl.griffin_lim_kernel.tc_launches, tgl.griffin_lim_kernel.launches)
+        y = tgl.griffin_lim_kernel(mag, n_iters, momentum, init, q, precision="default")
+        torch.cuda.synchronize()
+        assert tgl.griffin_lim_kernel.tc_launches == before[0] + 2 * n_iters + split_final
+        assert tgl.griffin_lim_kernel.launches == before[1] + (not split_final)
+        want = tgl.griffin_lim_plain(mag, n_iters, momentum, init, q, precision="default")
+        peak = float(want.abs().max())
+        torch.testing.assert_close(y, want, rtol=0, atol=rtol * peak)
+        assert float((y - want).abs().mean()) <= 3e-4 * peak
+
+
+def test_griffin_lim_tc_kernel_rejects_what_it_cannot_take(dev):
+    _, mag = _mel_mag(dev, 1, 64, 512)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tgl.griffin_lim_kernel(mag.double(), 1, 0.99, precision="default")
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tgl.griffin_lim_kernel(mag[:, ::2], 1, 0.99, precision="default")
+
+
 def test_vocoder_takes_the_kernel_at_every_length_and_hop(dev):
-    """Lengths that are not a multiple of 256 frames, and another hop."""
+    """Lengths that are not a multiple of 256 frames, and another hop. The
+    default Vocoder takes the tensor-core kernel and no fp32 loop kernel:
+    past 256 frames its one fp32 launch is the final synthesis (B2's f32
+    tail). gl_precision="highest" takes the fp32 kernels alone."""
     for q, t in ((AudioParams(), 320), (AudioParams(n_fft=2048, hop_length=512,
                                                     win_length=2048), 100)):
         wav = torch.tensor(synthetic_speech(1, t * q.hop_length), device=dev)
         mel = sp.waveform_to_r9y9_melspec(wav, q)[:t]
-        before = tgl.griffin_lim_kernel.launches
-        out = Vocoder(params=q, chunk_frames=64, gl_iters=4, device="cuda")(mel)
-        assert tgl.griffin_lim_kernel.launches == before + 2 * 4 + 1
-        assert out.shape == (t * q.hop_length,) and bool(torch.isfinite(out).all())
+        tb = -(-t // 64) * 64  # the Vocoder's bucket
+        for gl_precision, tc, fp32 in ((None, 2 * 4 + (tb <= 256), int(tb > 256)),
+                                       ("highest", 0, 2 * 4 + 1)):
+            before = (tgl.griffin_lim_kernel.tc_launches, tgl.griffin_lim_kernel.launches)
+            out = Vocoder(params=q, chunk_frames=64, gl_iters=4, device="cuda",
+                          gl_precision=gl_precision)(mel)
+            assert tgl.griffin_lim_kernel.tc_launches == before[0] + tc
+            assert tgl.griffin_lim_kernel.launches == before[1] + fp32
+            assert out.shape == (t * q.hop_length,) and bool(torch.isfinite(out).all())
 
 
 def test_griffin_lim_kernel_rejects_what_it_cannot_take(dev):

@@ -8,6 +8,16 @@ float64 there by up to 2e-4 × peak, so one iteration is held to 5e-4 × peak,
 and several iterations at momentum 0.99, which carry that difference
 forward, to 1e-3 × peak. The CUDA kernel itself is tested on the card, in
 tests/test_torch_cuda.py.
+
+The split mode (precision="default") is held to the same Pallas kernels at
+loop_dtype="split_synth", the JAX Vocoder's default. Both round the same
+operands to bf16, so they differ only in the order of their f32 sums; where
+y lies on a bf16 rounding boundary the two round it to neighbouring bf16
+values, and the projection amplifies that where the rebuilt |u| is near
+zero. The difference is a few isolated samples: 4.7e-4 × peak after one
+iteration and 1.45e-3 × peak after four at B=2 × 64 frames (bounds 1e-3
+and 3e-3), and at T=512 up to 8.2e-3 × peak at most but 1e-4 × peak on
+average (bounds 1.5e-2 and 3e-4).
 """
 
 import jax
@@ -107,6 +117,146 @@ class TestPlainAgainstPallas:
         assert l1(y) < 1.1 * l1(yx) + 1e-4, (l1(y), l1(yx))
 
 
+class TestSplitAgainstPallas:
+    """precision="default" against loop_dtype="split_synth"."""
+
+    @pytest.mark.parametrize("n_bins", [512, 513])
+    @pytest.mark.parametrize("n_iters,rtol", [(1, 1e-3), (4, 3e-3)])
+    def test_single_tile_kernel(self, short, n_bins, n_iters, rtol):
+        _, mag = short
+        m = np.ascontiguousarray(mag[..., :n_bins])
+        want = np.asarray(griffin_lim_pallas(
+            jnp.asarray(m), n_iters=n_iters, momentum=0.99, params=P, interpret=True,
+            loop_dtype="split_synth"))
+        got = tgl.griffin_lim_plain(torch.tensor(m), n_iters, 0.99, precision="default").numpy()
+        assert got.shape == want.shape == (2, 64 * P.hop_length)
+        _assert_close(got, want, rtol)
+
+    @pytest.mark.parametrize("with_init", [False, True])
+    def test_tiled_kernel(self, long, with_init):
+        """B2 (two rounds on 256-frame tiles with halos) and its f32 final
+        synthesis, with and without an init phase."""
+        _, mag = long
+        phi = np.random.default_rng(0).uniform(0, 2 * np.pi, mag.shape).astype(np.float32)
+        want = np.asarray(griffin_lim_pallas_tiled(
+            jnp.asarray(mag), n_iters=4, momentum=0.99, params=P, interpret=True,
+            loop_dtype="split_synth", tile=256, halo=16, iters_per_round=2,
+            init_phase=(jnp.cos(phi), jnp.sin(phi)) if with_init else None))
+        tphi = torch.tensor(phi)
+        got = tgl.griffin_lim_plain(
+            torch.tensor(mag), 4, 0.99, precision="default",
+            init_phase=(torch.cos(tphi), torch.sin(tphi)) if with_init else None,
+        ).numpy()
+        assert got.shape == want.shape == (1, 512 * P.hop_length)
+        _assert_close(got, want, 1.5e-2)
+        assert np.abs(got - want).mean() <= 3e-4 * np.abs(want).max()
+
+    def test_short_input_with_init_phase_takes_the_f32_tail(self, short):
+        """An init phase routes JAX to B2 at any length, so the final
+        synthesis is f32 even for T ≤ 256."""
+        _, mag = short
+        phi = np.random.default_rng(1).uniform(0, 2 * np.pi, mag.shape).astype(np.float32)
+        want = np.asarray(griffin_lim_pallas(
+            jnp.asarray(mag), n_iters=2, momentum=0.99, params=P, interpret=True,
+            loop_dtype="split_synth", init_phase=(jnp.cos(phi), jnp.sin(phi))))
+        tphi = torch.tensor(phi)
+        got = tgl.griffin_lim_plain(torch.tensor(mag), 2, 0.99, precision="default",
+                                    init_phase=(torch.cos(tphi), torch.sin(tphi))).numpy()
+        _assert_close(got, want, 3e-3)
+
+    def test_padded_hop_50(self):
+        """hop 50 and F 101, which the tensor-core kernel pads to 64 and 128."""
+        hop = 50
+        kw = dict(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+        jq, q = JAudioParams(**kw), AudioParams(**kw)
+        wav = loader.synthetic_speech(hop, 2 * 32 * hop).reshape(2, -1)
+        mag = np.ascontiguousarray(
+            np.asarray(jsp.waveform_to_magspec(jnp.asarray(wav), jq))[:, :32, :101])
+        want = np.asarray(griffin_lim_pallas(
+            jnp.asarray(mag), n_iters=4, momentum=0.99, params=jq, interpret=True,
+            loop_dtype="split_synth"))
+        got = tgl.griffin_lim_kernel(torch.tensor(mag), 4, 0.99, params=q,
+                                     precision="default").numpy()
+        assert got.shape == want.shape == (2, 32 * hop)
+        _assert_close(got, want, 3e-3)
+
+    def test_split_maps_match_pallas(self):
+        """The split maps equal _gl_maps(loop_dtype="split_synth") without
+        its lane padding: bf16 forward maps, (hi, lo) inverse pairs."""
+        from advoc_tpu.ops.pallas.griffin_lim import _gl_maps
+
+        fwd_re, fwd_im, inv_re, inv_im = (np.asarray(m, np.float32)
+                                          for m in _gl_maps(P, "split_synth", 512))
+        got = [m.numpy() for m in tgl._split_maps(AudioParams(), 512, torch.device("cpu"))]
+        np.testing.assert_array_equal(got[0], fwd_re[:, :512])
+        np.testing.assert_array_equal(got[1], fwd_im[:, :512])
+        for (hi, lo), m in (((got[2], got[3]), inv_re), ((got[4], got[5]), inv_im)):
+            np.testing.assert_array_equal(hi, m[:512])
+            np.testing.assert_array_equal(lo, m[512:1024])
+
+
+def _emulate_tensor_core_layout(mag, n_iters, momentum, params):
+    """The tensor-core kernel's products as dense shifted matmuls over its
+    padded operands (_tc_maps, _carry, _norm): synthesis reads carry rows
+    r + 3 − k, analysis y rows r + k, and the analysis columns come in
+    groups of 64 real then 64 imaginary bins."""
+    b, t, f = mag.shape
+    hop = params.hop_length
+    fp, hp = tgl._pad64(f), tgl._pad64(hop)
+    m_rows = b * (t + 3)
+    ws, wa = (w.float() for w in tgl._tc_maps(params, f, mag.device))
+    norm = tgl._norm(params, t, hp, mag.device)
+    rows_norm = norm.repeat(b, 1)
+    re, im = (tgl._carry(x, b, t, fp, torch.bfloat16).float() for x in tgl._init_carries(mag, None))
+    magp = tgl._carry(mag, b, t, fp, torch.float32)
+    pre, pim = torch.zeros_like(magp), torch.zeros_like(magp)
+    valid = (torch.arange(m_rows) % (t + 3) < t)[:, None]
+
+    def synth():
+        acc = torch.zeros((m_rows, hp))
+        for k in range(4):
+            for part, c in enumerate((re, im)):
+                rows = c[3 - k : 3 - k + m_rows]
+                acc += rows @ (ws[k, part, 0] + ws[k, part, 1]).T
+        return acc * rows_norm
+
+    for i in range(n_iters):
+        y = torch.cat([synth().to(torch.bfloat16).float(), torch.zeros((3, hp))])
+        acc = sum(y[k : k + m_rows] @ wa[:, :, :, k].reshape(2 * fp, hp).T for k in range(4))
+        acc = acc.reshape(m_rows, fp // 64, 2, 64)
+        ar, ai = acc[:, :, 0].reshape(m_rows, fp), acc[:, :, 1].reshape(m_rows, fp)
+        m = 0.0 if i == 0 else momentum
+        ur = ar + m * (ar - pre[3:])
+        ui = ai + m * (ai - pim[3:])
+        scale = magp[3:] * torch.rsqrt(ur * ur + ui * ui + 1e-12)
+        pre[3:] = torch.where(valid, ar, pre[3:])
+        pim[3:] = torch.where(valid, ai, pim[3:])
+        re[3:] = torch.where(valid, _bf16(ur * scale), re[3:])
+        im[3:] = torch.where(valid, _bf16(ui * scale), im[3:])
+    out = synth().view(b, t + 3, hp)[:, 2 : 2 + t, :hop]
+    return out.reshape(b, t * hop)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("hop,n_bins,t", [(256, 513, 40), (50, 101, 30), (250, 501, 20)])
+def test_tensor_core_operand_layout(hop, n_bins, t):
+    """The padded carry, map and norm layouts the tensor-core kernel reads
+    compute the split plain version's function (synthesis alone to 1e-5 ×
+    peak; two iterations to 2e-3 × peak, the sums taken in another order)."""
+    kw = dict(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+    q = AudioParams(**kw)
+    wav = loader.synthetic_speech(hop, 2 * t * hop).reshape(2, -1)
+    mag = torch.tensor(np.asarray(jsp.waveform_to_magspec(
+        jnp.asarray(wav), JAudioParams(**kw)))[:, :t, :n_bins]).contiguous()
+    for n_iters, rtol in ((0, 1e-5), (2, 2e-3)):
+        got = _emulate_tensor_core_layout(mag, n_iters, 0.99, q)
+        want = tgl.griffin_lim_plain(mag, n_iters, 0.99, params=q, precision="default")
+        _assert_close(got.numpy(), want.numpy(), rtol)
+
+
 class TestWrapper:
     def test_cpu_tensor_runs_plain_and_counts_nothing(self, short):
         _, mag = short
@@ -115,6 +265,20 @@ class TestWrapper:
         got = tgl.griffin_lim_kernel(m, 3, 0.99)
         assert tgl.griffin_lim_kernel.launches == before
         torch.testing.assert_close(got, tgl.griffin_lim_plain(m, 3, 0.99), rtol=0, atol=0)
+
+    def test_precision_selects_the_mode(self, short):
+        """On a CPU tensor both modes are the plain version; "default" is
+        split, "highest" (the default here) fp32, anything else raises."""
+        _, mag = short
+        m = torch.tensor(mag[..., :512]).contiguous()
+        torch.testing.assert_close(
+            tgl.griffin_lim_kernel(m, 2, 0.99, precision="default"),
+            tgl.griffin_lim_plain(m, 2, 0.99, precision="default"), rtol=0, atol=0)
+        torch.testing.assert_close(tgl.griffin_lim_kernel(m, 2, 0.99),
+                                   tgl.griffin_lim_plain(m, 2, 0.99, precision="highest"),
+                                   rtol=0, atol=0)
+        with pytest.raises(ValueError, match="precision"):
+            tgl.griffin_lim_kernel(m, 2, 0.99, precision="bf16")
 
     def test_rejects_bad_shapes(self, short):
         _, mag = short

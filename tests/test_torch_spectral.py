@@ -174,11 +174,31 @@ class TestGriffinLimMatmul:
 
     def test_kernel_form_dispatch_drops_nyquist(self, mel_mag):
         """fft_impl="kernel" on a CPU tensor runs the kernel's plain version
-        on 512 bins when asked to drop Nyquist."""
+        (its default precision, the split mode) on 512 bins when asked to
+        drop Nyquist."""
         from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_plain
 
         _, mag = mel_mag
         m = torch.tensor(mag)
         got = tsp.griffin_lim(m, n_iters=2, momentum=0.99, fft_impl="kernel", drop_nyquist=True)
-        want = griffin_lim_plain(m[..., :512].contiguous(), 2, 0.99)
+        want = griffin_lim_plain(m[..., :512].contiguous(), 2, 0.99, precision="default")
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    def test_kernel_form_defaults_to_jax_split_synth(self, mel_mag):
+        """precision=None is "default", JAX's split_synth (what its
+        fft_impl="pallas" runs at precision None): 1e-3 × peak after one
+        iteration (test_torch_griffin_lim.py states why). "highest" is the
+        fp32 mode, which differs from it by ~9e-2 × peak already."""
+        from advoc_tpu.ops.pallas.griffin_lim import griffin_lim_pallas
+
+        _, mag = mel_mag
+        m = np.ascontiguousarray(mag[..., :512])
+        want = np.asarray(griffin_lim_pallas(jnp.asarray(m), n_iters=1, momentum=0.99,
+                                             params=P, interpret=True, loop_dtype="split_synth"))
+        kw = dict(n_iters=1, momentum=0.99, fft_impl="kernel", drop_nyquist=True)
+        got = tsp.griffin_lim(torch.tensor(mag), **kw).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max())
+        f32 = tsp.griffin_lim(torch.tensor(mag), precision="highest", **kw).numpy()
+        assert np.abs(f32 - want).max() > 1e-2 * np.abs(want).max()
+        with pytest.raises(ValueError, match="precision"):
+            tsp.griffin_lim(torch.tensor(mag), precision="fp32", **kw)

@@ -136,6 +136,27 @@ class TestVocoder:
         l1x, l1k = _mel_l1(xla(mel).numpy(), mel), _mel_l1(kern(mel).numpy(), mel)
         assert l1k < 1.1 * l1x + 1e-4, (l1k, l1x)
 
+    @pytest.mark.parametrize("gl_precision", [None, "default", "highest"])
+    def test_gl_precision_passes_through(self, gens, mel, monkeypatch, gl_precision):
+        """None means "default", JAX's split_synth, as in the JAX Vocoder;
+        the kernel form gets it, the matmul scan stays fp32."""
+        from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
+
+        seen = []
+        real = tgl.griffin_lim_kernel
+        monkeypatch.setattr(tgl, "griffin_lim_kernel",
+                            lambda *a, **kw: seen.append(kw["precision"]) or real(*a, **kw))
+        kw = dict(chunk_frames=64, gl_iters=2, device="cpu", gl_precision=gl_precision)
+        kern = Vocoder(gens[2], phase_impl="kernel", **kw)
+        want = gl_precision or "default"
+        assert kern.gl_precision == want
+        kern(mel[:64])
+        assert seen == [want]
+        Vocoder(gens[2], phase_impl="xla", **kw)(mel[:64])
+        assert seen == [want]
+        with pytest.raises(ValueError, match="gl_precision"):
+            Vocoder(device="cpu", gl_precision="bf16")
+
     @pytest.mark.parametrize("n_fft,hop,on_card", [
         (1024, 256, True), (2048, 512, True), (1000, 250, True), (1024, 200, False),
     ])
