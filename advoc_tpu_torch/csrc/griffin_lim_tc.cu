@@ -60,7 +60,11 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBM = 128;                    // rows per CTA: two warpgroups of 64
 constexpr int kBN = 128;                    // wgmma N
@@ -73,7 +77,6 @@ constexpr int kAnalStages = 4;              // 2 tiles a stage: 128 KB
 // One CTA per SM in both modes: synthesis for its shared memory, analysis
 // for the registers of its epilogue's prefetch (two 64-row CTAs per SM
 // measured no faster on an H100).
-constexpr long long kHangCycles = 1LL << 32;  // ~2 s: a lost mbarrier phase traps
 
 enum Mode { kSynthBf16 = 0, kSynthF32 = 1, kAnalyze = 2 };
 
@@ -93,97 +96,6 @@ struct Args {
   float* im32;
   float momentum;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of the given parity has completed. A phase that
-// never completes is a bug: trap instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  const long long start = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > kHangCycles) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile whose rows are 128
-// bytes, swizzled by TMA's SWIZZLE_128B: 8-row groups 1024 bytes apart
-// (SBO), layout type 1 (128-byte swizzle). The tile must be 1024-aligned;
-// the k16 slices within a row are reached by adding 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128], both K-major in shared memory.
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 template <int kMode>
 __host__ __device__ constexpr int stages() {
@@ -231,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -306,17 +218,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(smem_u32(&full[s]), (it / kStages) & 1);
     const uint32_t a = smem_u32(smem + s * kStageBytes) + wg * 64 * 128;
     const uint32_t b0 = smem_u32(smem + s * kStageBytes + kTileBytes);
-    fence_acc(d);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    fence_regs(d);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       wgmma_128(d, sw128_desc(a + kk * 32), sw128_desc(b0 + kk * 32));
       if constexpr (kSynth)
         wgmma_128(d, sw128_desc(a + kk * 32), sw128_desc(b0 + kTileBytes + kk * 32));
     }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(d);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
     mbar_arrive(smem_u32(&empty[s]));
   }
 
@@ -368,46 +280,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through
-// cudaGetDriverEntryPoint (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes above cudaError_t's range (see error_string).
-constexpr int kNoEncode = 100000;
-constexpr int kEncodeFailed = 200000;
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 tensor map with 128-byte swizzle and a (64, 128[, 1]) box;
 // elements outside the tensor read as zero. dims innermost first, strides
 // in bytes for dims 1.. .
 int encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
            const cuuint64_t* strides) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return kNoEncode;
   const cuuint32_t box[3] = {kBK, kBM, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+  return hopper::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, ptr, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int kMode>
@@ -489,10 +369,6 @@ int gl_tc_analyze(const void* y, const void* wa, const float* mag, float* pre, f
 }
 
 // Every library of csrc/ exports error_string (see ops/kernels/_build.py).
-const char* error_string(int code) {
-  if (code == kNoEncode) return "cuTensorMapEncodeTiled entry point not found";
-  if (code >= kEncodeFailed) return "cuTensorMapEncodeTiled rejected a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* error_string(int code) { return hopper::error_string(code); }
 
 }  // extern "C"

@@ -8,23 +8,33 @@ Hann window folded into the cos/sin maps, only the F_KEPT = 384 bins the
 mel filterbank can reach), then |·|, the 80-band mel, dB, normalize and
 clip. It yields L//hop frames, not 1 + L//hop.
 
-Design on Hopper (``csrc/featurizer.cu``): one CTA per (row, 64-frame
-tile). The tile's (64 + 3) × hop audio window is copied into shared memory
-once (68.6 KB at hop 256, the reflect padding done by the index map), so
-frames never exist in device memory. The cos/sin maps (2 × 1024 × 384
-fp32, 3.1 MB) stay in L2 and stream through shared memory in 16-row K
-slices. The products are fp32 FMA, not TF32 or bf16: the featurizer's dB
-scale turns the cancellation in quiet bins into large errors at reduced
-precision (the JAX kernel records 0.22 max error in normalized dB for the
-MXU's bf16 default, 1e-3 at full precision). Bins go in chunks of 64: the
-magnitude is taken in registers, staged in shared memory, and folded into
-per-thread mel sums that stay in registers across the chunks; only the
-(64, 80) dB / normalize / clip epilogue is written.
+Design on Hopper (``csrc/featurizer.cu``): one CTA per (row, frame tile):
+128 frames where those tiles fill the card and the window fits (hop ≤ 256),
+64 otherwise. The tile's (frames + 3) hop blocks of audio are copied into
+shared memory once (the reflect padding done by the index map), each
+zero-padded to hb = hop rounded up to 16 samples, so frames never exist in
+device memory: frame t's band k is hop block t + k, the banded form of the
+JAX kernel. Any hop up to 736 runs (the window fills shared memory). Every product runs on the tensor cores (``wgmma``) in 3xTF32:
+operands are split into a TF32 big part (round to nearest, ties away) and
+the TF32 rounding of the rest, and big·big + big·small + small·big is
+summed in f32, which keeps fp32 accuracy. bf16 with one hi/lo split does
+not: on a quiet stretch it reaches the 1e-3 gate in normalized units
+(``tests/test_torch_featurizer.py::test_bf16_hi_lo_split_is_not_enough``),
+because the featurizer's dB scale turns the cancellation in quiet bins into
+large errors at reduced precision (the JAX kernel records 0.22 for the
+MXU's bf16 default). The host stores the split maps K-major,
+(768, 4 hb), zero in each band's padding: each 128-row chunk is 64 cosine bins then the same 64 sine
+bins, so a thread's accumulator holds both parts of its bins and |X| is
+taken in registers. The mel fold is a second such product whose A operand
+is |X| straight from that accumulator, against the split filterbank with
+each 8-bin group reordered (:data:`MEL_K_ORDER`, :func:`_tc_operands`); only
+the (128, 80) dB / normalize / clip epilogue is written.
 
 Bound: operations. Per frame 2·2·n_fft·F_KEPT + 2·F_KEPT·80 FLOP; at
 B=128 × 65536 samples (32768 frames) ≈ 53.6 GFLOP against ≈ 47 MB of audio,
-maps and mel, so ≈ 0.054 ms at the H100's 989 TFLOP/s dense bf16 rate and
-≈ 0.80 ms at the 67 TFLOP/s of the fp32 CUDA cores the kernel uses.
+maps and mel, so ≈ 0.054 ms at the H100's 989 TFLOP/s dense bf16 rate.
+3xTF32 does every product three times at the 495 TFLOP/s TF32 rate: a
+ceiling of ≈ 0.32 ms for this form.
 """
 
 from __future__ import annotations
@@ -68,9 +78,61 @@ def _kernel_consts(params: AudioParams):
     return w_cos, w_sin, mel_t
 
 
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """float32 → the nearest TF32 value (10 mantissa bits), ties away from
+    zero: what ``cvt.rna.tf32.f32`` gives, by integer rounding of the bits."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """a ≈ big + small, both TF32: the 3xTF32 operands."""
+    big = _tf32_rna(a)
+    return big, _tf32_rna(np.asarray(a, np.float32) - big)
+
+
+# Each 8-bin group of the kernel's filterbank operand in this order: the
+# DFT accumulator gives a thread bins 2t and 2t + 1 of a group, which the
+# mel product reads as the fragment's columns t and t + 4.
+MEL_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def block_width(hop: int) -> int:
+    """The kernel's hop block: hop rounded up to a 16-sample K slice."""
+    return -(-hop // 16) * 16
+
+
+def _tc_operands(params: AudioParams) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's B operands in float32, K-major: the maps (2·F_KEPT,
+    4·hb), rows 128c .. 128c + 63 W_cos's bins 64c .. 64c + 63 and rows
+    128c + 64 .. 128c + 127 W_sin's same bins, band k's samples at columns
+    k·hb .. k·hb + hop - 1 and zero up to (k + 1)·hb; the filterbank (80,
+    F_KEPT), each 8-bin group in MEL_K_ORDER."""
+    w_cos, w_sin, mel_t = _kernel_consts(params)
+    hop = params.hop_length
+    maps = np.stack([w_cos.T.reshape(F_KEPT // 64, 64, 4, hop),
+                     w_sin.T.reshape(F_KEPT // 64, 64, 4, hop)], axis=1)
+    maps = np.pad(maps, [(0, 0)] * 4 + [(0, block_width(hop) - hop)])
+    order = (np.arange(F_KEPT) // 8) * 8 + np.tile(MEL_K_ORDER, F_KEPT // 8)
+    return maps.reshape(2 * F_KEPT, -1), np.ascontiguousarray(mel_t[order, :80].T)
+
+
+@functools.lru_cache(maxsize=4)
+def _tc_consts(params: AudioParams) -> tuple[np.ndarray, ...]:
+    """What the kernel reads: the big and small TF32 parts of the maps, then
+    of the filterbank (:func:`_tc_operands`)."""
+    maps, mel = _tc_operands(params)
+    return (*_tf32_split(maps), *_tf32_split(mel))
+
+
 @functools.lru_cache(maxsize=8)
 def _consts_on(params: AudioParams, device: torch.device) -> tuple[Tensor, Tensor, Tensor]:
     return tuple(torch.as_tensor(c, device=device) for c in _kernel_consts(params))
+
+
+@functools.lru_cache(maxsize=8)
+def _tc_consts_on(params: AudioParams, device: torch.device) -> tuple[Tensor, ...]:
+    return tuple(torch.as_tensor(c, device=device) for c in _tc_consts(params))
 
 
 def _check(wav: Tensor, params: AudioParams) -> None:
@@ -118,7 +180,7 @@ def fused_melspec_plain(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Te
 def _lib() -> ctypes.CDLL:
     lib = _build.load("featurizer")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_melspec.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, p]
+    lib.fused_melspec.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, f, p]
     lib.fused_melspec.restype = i
     return lib
 
@@ -128,7 +190,8 @@ def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> T
 
     On a CUDA tensor: the CUDA kernel, one launch on the current stream,
     counted in ``fused_melspec_kernel.launches``; it raises on a tensor or
-    AudioParams the kernel does not take, or a failed launch. On a CPU
+    AudioParams the kernel does not take, or a failed launch (a hop above
+    736, whose audio window would not fit in shared memory, fails so). On a CPU
     tensor: the plain version, :func:`fused_melspec_plain`.
     """
     _check(wav, params)
@@ -136,18 +199,17 @@ def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> T
         return fused_melspec_plain(wav, params)
     if wav.dtype != torch.float32:
         raise ValueError("fused_melspec_kernel needs a float32 waveform")
-    hop = params.hop_length
-    if hop % 4 or params.n_mels > 80:
-        raise ValueError("fused_melspec_kernel needs hop % 4 == 0 and n_mels <= 80")
-    lead, length = wav.shape[:-1], wav.shape[-1]
+    if params.n_mels > 80:
+        raise ValueError("fused_melspec_kernel needs n_mels <= 80")
+    hop, (lead, length) = params.hop_length, (wav.shape[:-1], wav.shape[-1])
     x = wav.reshape(-1, length).contiguous()
     b, n = x.shape[0], length // hop
     if b * max(length, n * params.n_mels) >= 2**31:
         raise ValueError("fused_melspec_kernel indexes with 32-bit offsets")
-    w_cos, w_sin, mel_t = _consts_on(params, wav.device)
+    consts = _tc_consts_on(params, wav.device)
     out = torch.empty((b, n, params.n_mels), dtype=torch.float32, device=wav.device)
     code = _lib().fused_melspec(
-        x.data_ptr(), w_cos.data_ptr(), w_sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
+        x.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(),
         b, length, hop, params.n_mels, params.amp_floor, params.ref_level_db,
         params.min_level_db, torch.cuda.current_stream(wav.device).cuda_stream,
     )

@@ -10,13 +10,19 @@ bias in bf16 and, on request, returns the per-(batch, lane) Σy and Σy²
 
 Design on Hopper (``csrc/packed_up.cu``): each CTA owns one parity class
 (p, q) and computes it as a GEMM with the minimum work (K = 4 taps × cin)
-on the tensor cores with ``mma.sync`` (bf16 operands, f32 accumulation).
-The class's weights sit in shared memory for ``tm`` rows; the two input
-rows a class reads per output row are staged in shared memory. The TPU
-kernel carries the norm sums across grid steps in a revisited VMEM block;
-Hopper CTAs run in no order, so each CTA writes partials and a second small
-launch reduces them in a fixed order (no float atomics: the same result on
-every run).
+on the tensor cores with ``wgmma`` (bf16 operands, f32 accumulation),
+transposed (y^T = W x^T) so that the instruction's N is 128 positions. The
+class's weights, K-major and padded to CP = cin rounded up to 64, are loaded
+once by TMA and stay in shared memory; each input row is one TMA load of a
+(136 positions, 64 channels) box of ``x`` that serves both column taps,
+and its zero fill gives the image border. Two consumer warpgroups, each
+with its own producer warp, split the CTA's rows, and each output tile
+leaves through a TMA store. The TPU kernel carries the norm sums across
+grid steps in a revisited VMEM block; Hopper CTAs run in no order, so each
+CTA writes partials and a second small launch reduces them in a fixed
+order (no float atomics: the same result on every run). The kernel takes
+cin ≤ 256: up to 192 (the widest finest level of the documented configs)
+with two x stages per warpgroup, above that with one.
 
 Bound: at the full-width finest level (B=128, H=W=128, cin 192 = 128
 channels from the level below + 64 of skip, f 64) the work is
@@ -98,7 +104,8 @@ def packed_up_plain(
 def _class_weights(wt: Tensor, f: int, cp: int) -> Tensor:
     """(4, 4, cin, f) → (4, NP, 4·cp) bf16: per parity class p·2 + q, row c,
     column (2u + v)·cp + ci holds wt[2u+p, 2v+q, ci, c]; zero-padded to cp
-    input and NP = ⌈f/64⌉·64 output channels."""
+    input and NP = ⌈f/64⌉·64 output channels. The kernel's weight tile
+    (tap, kc) is the 64 × 64 box at row c0, column tap·cp + 64·kc."""
     cin = wt.shape[2]
     npad = -(-f // 64) * 64
     w6 = wt.reshape(2, 2, 2, 2, cin, f).permute(1, 3, 5, 0, 2, 4)  # [p, q, c, u, v, ci]
@@ -139,9 +146,7 @@ def packed_up_kernel(
             f"packed_up_kernel needs cin % 8 == 0, f % 8 == 0 and H % tm == 0 "
             f"(cin {cin}, f {f}, H {h}, tm {tm})"
         )
-    if b * 2 * h * w * 2 * f >= 2**31 or b * h * w * cin >= 2**31:
-        raise ValueError("packed_up_kernel indexes rows with 32-bit offsets")
-    cp = -(-cin // 16) * 16
+    cp = -(-cin // 64) * 64  # whole 128-byte K boxes
     lib = _lib()
     dev = x.device
     wq = _class_weights(wt.to(dev), f, cp)
@@ -149,7 +154,7 @@ def packed_up_kernel(
     y = torch.empty((b, 2 * h, w, 2 * f), dtype=torch.bfloat16, device=dev)
     stats = [None] * 4  # partials p1, p2 (B, n_part, 2f) and sums s1, s2 (B, 2f)
     if with_stats:
-        n_part = (h // tm) * -(-w // 64) * 2
+        n_part = (h // tm) * -(-w // 128) * 2
         stats = [*torch.empty((2, b, n_part, 2 * f), dtype=torch.float32, device=dev),
                  *torch.empty((2, b, 2 * f), dtype=torch.float32, device=dev)]
     code = lib.packed_up(

@@ -146,11 +146,20 @@ def test_griffin_lim_kernel_rejects_what_it_cannot_take(dev):
         tgl.griffin_lim_kernel(mag[:, ::2], 1, 0.99)
 
 
-@pytest.mark.parametrize("shape", [(2, 300 * 256 + 77), (1, 64 * 256), (3, 1, 5 * 256 + 3)])
+# The kernel against its plain version: 3xTF32 products against fp32
+# matmuls. H100 runs measured 2.8e-5 to 4.2e-5 in normalized units; 2e-4
+# holds that with a margin and fails a form with one bf16 hi/lo split, which
+# misses by 1e-3 on a quiet stretch (test_torch_featurizer.py's emulation).
+FEAT_ATOL = 2e-4
+
+
+@pytest.mark.parametrize("shape", [(2, 300 * 256 + 77), (1, 64 * 256), (3, 1, 5 * 256 + 3),
+                                   (1, 1024 * 256), (132, 200 * 256 + 77)])
 def test_featurizer_kernel_matches_plain(dev, shape):
-    """Ragged tiles, L not a multiple of hop, extra lead dims. fp32 FMA
-    against fp32 matmuls: 1e-3 in normalized units (chip_smoke.py states the
-    measured margin); 3e-3 against the STFT path (tests/test_pallas.py)."""
+    """Ragged tiles, L not a multiple of hop, extra lead dims, one long
+    utterance (64-frame tiles), and 132 rows (128-frame tiles, which fill
+    the card once). Within FEAT_ATOL of the plain version; 3e-3 against
+    the STFT path (tests/test_pallas.py)."""
     n = int(np.prod(shape))
     wav = torch.tensor(synthetic_speech(1, n), device=dev).reshape(shape)
     before = tfeat.fused_melspec_kernel.launches
@@ -158,16 +167,61 @@ def test_featurizer_kernel_matches_plain(dev, shape):
     torch.cuda.synchronize()
     assert tfeat.fused_melspec_kernel.launches == before + 1
     assert got.shape == shape[:-1] + (shape[-1] // 256, 80)
-    torch.testing.assert_close(got, tfeat.fused_melspec_plain(wav), rtol=0, atol=1e-3)
+    torch.testing.assert_close(got, tfeat.fused_melspec_plain(wav), rtol=0, atol=FEAT_ATOL)
     xla = sp.waveform_to_r9y9_melspec(wav)[..., : got.shape[-2], :]
     torch.testing.assert_close(got, xla, rtol=0, atol=3e-3)
 
 
+def test_featurizer_kernel_quiet_row(dev):
+    """A row with a stretch at 1e-3 amplitude: the quiet bins where reduced
+    precision fails (bf16 with one hi/lo split misses the 1e-3 bound there)."""
+    wav = torch.tensor(synthetic_speech(2, 2 * 200 * 256), device=dev).reshape(2, -1)
+    wav[1, 20 * 256 : 180 * 256] *= 1e-3
+    got = tfeat.fused_melspec_kernel(wav)
+    torch.testing.assert_close(got, tfeat.fused_melspec_plain(wav), rtol=0, atol=FEAT_ATOL)
+    xla = sp.waveform_to_r9y9_melspec(wav)[..., : got.shape[-2], :]
+    torch.testing.assert_close(got, xla, rtol=0, atol=3e-3)
+
+
+@pytest.mark.parametrize("kw", [dict(hop_length=200), dict(hop_length=250),
+                                dict(hop_length=512, sample_rate=44100),
+                                dict(hop_length=600, sample_rate=48000)],
+                         ids=lambda kw: f"hop{kw['hop_length']}")
+def test_featurizer_kernel_other_hops(dev, kw):
+    """Hops the kernel pads to its 16-sample K slice (200 → 208, 250 → 256,
+    600 → 608), the 44.1 kHz n_fft 2048 (64-frame tiles) and 48 kHz at hop
+    600 (a two-stage ring), with a quiet stretch; within FEAT_ATOL of the
+    plain version."""
+    hop = kw["hop_length"]
+    params = AudioParams(n_fft=4 * hop, win_length=4 * hop, **kw)
+    wav = torch.tensor(synthetic_speech(hop, 2 * (300 * hop + 77)), device=dev).reshape(2, -1)
+    wav[1, 20 * hop : 200 * hop] *= 1e-3
+    got = tfeat.fused_melspec_kernel(wav, params)
+    assert got.shape == (2, 300, 80)
+    torch.testing.assert_close(got, tfeat.fused_melspec_plain(wav, params), rtol=0,
+                               atol=FEAT_ATOL)
+
+
+def test_featurizer_kernel_rejects_what_it_cannot_take(dev):
+    wav = torch.zeros((1, 64 * 1024), device=dev)
+    # hop 1024: the 64-frame audio window alone would fill shared memory.
+    with pytest.raises(RuntimeError, match="fused_melspec failed"):
+        tfeat.fused_melspec_kernel(wav, AudioParams(sample_rate=88200, n_fft=4096,
+                                                    hop_length=1024, win_length=4096))
+    with pytest.raises(ValueError, match="float32"):
+        tfeat.fused_melspec_kernel(wav.double())
+
+
 @pytest.mark.parametrize("b,h,w,cin,f,tm", [
     (2, 32, 16, 16, 8, 8), (1, 64, 72, 24, 72, 16), (2, 32, 64, 128, 64, 16),
-    # cin 200 padded to 208, near the shared-memory limit; a ragged
-    # 64-channel tile at f = 40.
-    (1, 32, 40, 200, 40, 8),
+    # cin 184 padded to 192, the widest with two x stages per warpgroup
+    # (its weights fill 96 KB of shared memory); cin 200 padded to 256, the
+    # widest the kernel takes, with one; a ragged 64-channel tile at f = 40.
+    (1, 32, 40, 184, 40, 8), (1, 32, 40, 200, 40, 8), (2, 8, 136, 256, 64, 4),
+    # W not a multiple of 64 at the real width; cin 24, where the TMA box
+    # overhangs the channels; H = 2, one row per chunk (tm 1), so the second
+    # warpgroup has no row.
+    (2, 16, 72, 192, 64, 8), (2, 8, 72, 24, 40, 4), (2, 2, 80, 64, 64, 1),
 ])
 def test_packed_up_kernel_matches_plain(dev, b, h, w, cin, f, tm):
     """y within 1e-2 × peak (about two bf16 ulps: the two sum in other
@@ -220,8 +274,8 @@ def test_packed_up_kernel_rejects_what_it_cannot_take(dev):
         tpu.packed_up_kernel(x, wt, bias, f=8, tm=8)
     with pytest.raises(ValueError, match="bfloat16"):
         tpu.packed_up_kernel(x.float(), wt, bias, f=8, tm=8)
-    # A cin whose weights and rows overflow a CTA's shared memory: the
-    # launch's own error.
+    # A cin above 256, whose weights would not fit in a CTA's shared memory
+    # beside the rings: the library's own error.
     x = torch.zeros((1, 16, 8, 512), dtype=torch.bfloat16, device=dev)
     wt = torch.zeros((4, 4, 512, 8), device=dev)
     with pytest.raises(RuntimeError, match="packed_up failed"):

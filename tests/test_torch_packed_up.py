@@ -120,3 +120,74 @@ def test_rejects_what_the_tpu_kernel_rejects(kw, match):
     args = dict(f=8, tm=8) | kw
     with pytest.raises(ValueError, match=match):
         tpu.packed_up_kernel(torch.tensor(x), torch.tensor(wt), torch.tensor(bias), **args)
+
+
+def _emulate_tensor_core_packed_up(x, wt, bias, f):
+    """The CUDA kernel's tiles on the CPU: per class (p, q), half-resolution
+    row m, 128-position tile n0 and 64-channel tile c0, y^T = W x^T summed
+    over input rows u, 64-channel K boxes kc and column taps v. Each (u, kc)
+    is one TMA box of x, 136 positions from (b, m+p-1+u, n0+q-1, 64 kc),
+    zero outside (H, W, cin); tap v reads its rows v .. v + 127 against the
+    class weights' (tap 2u+v, kc) tile (CP = cin rounded up to 64). bf16
+    products summed in f32; then bf16(bf16(z) + bias), the store clipped to
+    W and f, and Σy, Σy² over the stored values."""
+    b, h, w, cin = x.shape
+    cp, n_pad = -(-cin // 64) * 64, -(-f // 64) * 64
+    wq = tpu._class_weights(torch.tensor(wt), f, cp).float().numpy()
+    bias_p = np.pad(torch.tensor(bias).to(torch.bfloat16).float().numpy(), (0, n_pad - f))
+    xb = torch.tensor(x).to(torch.bfloat16).float().numpy()
+
+    def box(r, n_start, ci0):  # (B, 136 positions, 64 channels), zero fill outside
+        out = np.zeros((b, 136, 64), np.float32)
+        if 0 <= r < h:
+            lo, hi = max(n_start, 0), min(n_start + 136, w)
+            if lo < hi:
+                blk = xb[:, r, lo:hi, ci0 : ci0 + 64]
+                out[:, lo - n_start : hi - n_start, : blk.shape[-1]] = blk
+        return out
+
+    def bf16(a):
+        return torch.tensor(a).to(torch.bfloat16).float().numpy()
+
+    y = np.zeros((b, 2 * h, w, 2 * f), np.float32)
+    for p in (0, 1):
+        for q in (0, 1):
+            for m in range(h):
+                for n0 in range(0, w, 128):
+                    for c0 in range(0, n_pad, 64):
+                        zt = np.zeros((b, 64, 128), np.float32)  # (channels, positions)
+                        for u in (0, 1):
+                            for kc in range(cp // 64):
+                                a = box(m + p - 1 + u, n0 + q - 1, 64 * kc)
+                                for v in (0, 1):
+                                    k0 = (2 * u + v) * cp + 64 * kc
+                                    wtile = wq[2 * p + q, c0 : c0 + 64, k0 : k0 + 64]
+                                    zt += wtile @ a[:, v : v + 128].transpose(0, 2, 1)
+                        o = bf16(bf16(zt) + bias_p[c0 : c0 + 64, None]).transpose(0, 2, 1)
+                        nn, cc = min(128, w - n0), min(64, f - c0)
+                        y[:, 2 * m + p, n0 : n0 + nn, q * f + c0 : q * f + c0 + cc] = o[:, :nn, :cc]
+    return y, y.sum(axis=(1, 2)), (y * y).sum(axis=(1, 2))
+
+
+@pytest.mark.parametrize("w,cin,f", [(72, 24, 40), (72, 192, 64), (136, 64, 64)])
+def test_tensor_core_operand_layout(w, cin, f):
+    """The kernel's TMA boxes and CP-64 class weights rebuild y and Σ: held
+    to the plain version and to JAX's packed_up in interpret mode. y within
+    1e-2 × peak (bf16 results of f32 sums taken in other orders), Σy, Σy²
+    within 1e-3 relative; W = 72 leaves a ragged position tile (and W = 136
+    a second one), cin 24 a box that overhangs the channels, f 40 a ragged
+    channel tile."""
+    b, h, tm = 2, 8, 4
+    x, wt, bias = _inputs(b, h, w, cin, f, seed=4)
+    wt = (wt * np.sqrt(8 / cin)).astype(np.float32)  # unit-scale outputs at every cin
+    y, s1, s2 = _emulate_tensor_core_packed_up(x, wt, bias, f)
+    xb = torch.tensor(x).to(torch.bfloat16)
+    plain = tpu.packed_up_plain(xb, torch.tensor(wt), torch.tensor(bias), f=f, tm=tm,
+                                with_stats=True)
+    jax_ = j_packed_up(jnp.asarray(x, jnp.bfloat16), jnp.asarray(wt), jnp.asarray(bias), f=f,
+                       tm=tm, with_stats=True, interpret=True)
+    for want in ([t.float().numpy() for t in plain], [np.asarray(t, np.float32) for t in jax_]):
+        peak = np.abs(want[0]).max()
+        np.testing.assert_allclose(y, want[0], rtol=0, atol=1e-2 * peak)
+        np.testing.assert_allclose(s1, want[1], rtol=1e-3, atol=1e-3 * np.abs(y).sum(axis=(1, 2)).max())
+        np.testing.assert_allclose(s2, want[2], rtol=1e-3, atol=0)
