@@ -1,0 +1,74 @@
+"""Audio I/O on the stdlib ``wave`` module and numpy: decode WAV to float32
+mono, resample, save float samples as 16-bit WAV.
+
+The port's copy of ``advoc_tpu.data.audioio`` without its native parser.
+:func:`save_as_wav` writes the same bytes as the JAX package's (its native
+writer and its fallback alike): the 44-byte PCM header and
+``round(clip(x, -1, 1) · 32767)`` samples, the convention of the streaming
+vocoder's int16 emit.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import wave
+from math import gcd
+
+import numpy as np
+
+
+def _decode(path: str) -> tuple[np.ndarray, int]:
+    with wave.open(path, "rb") as w:
+        sr = w.getframerate()
+        ch = w.getnchannels()
+        width = w.getsampwidth()
+        raw = w.readframes(w.getnframes())
+    if width == 2:
+        x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    elif width == 3:
+        b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
+        v = (b[:, 0].astype(np.int32) | (b[:, 1].astype(np.int32) << 8)
+             | (b[:, 2].astype(np.int32) << 16))
+        v = np.where(v & 0x800000, v - (1 << 24), v)
+        x = v.astype(np.float32) / 8388608.0
+    else:
+        raise ValueError(f"unsupported sample width {width} in {path!r}")
+    if ch > 1:
+        x = x.reshape(-1, ch).mean(axis=1)
+    return x, sr
+
+
+def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Polyphase resampling on the host (scipy)."""
+    if sr_in == sr_out:
+        return x
+    from scipy.signal import resample_poly
+
+    g = gcd(sr_in, sr_out)
+    return resample_poly(x, sr_out // g, sr_in // g).astype(np.float32)
+
+
+def decode_audio(path: str | pathlib.Path, target_sample_rate: int | None = None) -> np.ndarray:
+    """Decode a WAV file to mono float32 in [-1, 1], resampled to
+    ``target_sample_rate`` if given. (The JAX function's ``normalize``, a
+    training-loader option, comes with the loader: ROADMAP.md queue A.)"""
+    x, sr = _decode(str(path))
+    if target_sample_rate is not None and sr != target_sample_rate:
+        x = resample(x, sr, target_sample_rate)
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def save_as_wav(x, path: str | pathlib.Path, sample_rate: int = 22050) -> None:
+    """Save mono float32 samples as 16-bit PCM WAV, each the nearest of
+    ``clip(x, -1, 1) · 32767`` (ties to even, as C's ``lrintf``)."""
+    x = np.asarray(x, dtype=np.float32).reshape(-1)
+    pcm = np.round(np.clip(x, -1.0, 1.0) * np.float32(32767.0)).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())

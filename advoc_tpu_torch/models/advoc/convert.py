@@ -11,6 +11,9 @@ nothing of JAX. Kernel layouts:
   flipped spatially, then ``weight`` (cin, cout, kh, kw);
 * ``GroupNorm`` scale/bias → ``weight``/``bias``.
 
+Under ``fast_head`` the tree has no ``up{depth-1}`` and ``head`` is the 3×3
+conv to 4·freq_pack outputs; the same layouts apply.
+
 It raises on a missing or unexpected leaf and on any shape mismatch.
 """
 
@@ -52,7 +55,7 @@ def _name_map(cfg: AdvocConfig) -> dict[str, tuple[str, str]]:
         if i > 0:
             norm(f"down{i}/norm", f"downs.{i}.norm")
     conv("bottleneck", "bottleneck", "conv")
-    for i in range(cfg.depth):
+    for i in range(cfg.depth - 1 if cfg.fast_head else cfg.depth):
         conv(f"up{i}/conv", f"ups.{i}.conv", "conv_transpose")
         norm(f"up{i}/norm", f"ups.{i}.norm")
     conv("head", "head", "conv")

@@ -21,6 +21,9 @@ onto torch as follows (checked by ``tests/test_torch_model.py``):
 ``AdvocConfig(packed_tail=True)`` computes the finest decoder level and the
 1×1 head in the packed layout (B, T, W, 2f) of the JAX package
 (:class:`_PackedTailUp`), with the same parameters and function.
+``AdvocConfig(fast_head=True)`` (and :func:`small_config`, the streaming
+generator) stops the decoder one level early and predicts the residual at
+half resolution, as the JAX package does; ``packed_tail`` is then ignored.
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class AdvocConfig:
     """Hyperparameters of the advoc GAN; the JAX package's fields and
-    defaults. Of the generator's modes the default one and ``packed_tail``
-    are ported: the others raise ``NotImplementedError`` (ROADMAP.md queue
-    A)."""
+    defaults. Of the generator's modes the default one, ``packed_tail`` and
+    ``fast_head`` are ported: the others raise ``NotImplementedError``
+    (ROADMAP.md queue A)."""
 
     n_frames: int = 256
     n_freq: int = 513
@@ -194,9 +197,10 @@ class AdvocGenerator(nn.Module):
 
     def __init__(self, cfg: AdvocConfig = AdvocConfig()):
         super().__init__()
-        if cfg.fast_head:
-            raise NotImplementedError("fast_head is not ported yet (ROADMAP.md queue A)")
-        if cfg.packed_tail and (cfg.upsample != "convtranspose" or cfg.head_kernel != 1):
+        # As in the JAX generator, fast_head has no finest decoder level, so
+        # packed_tail is ignored under it.
+        self.packed_tail = cfg.packed_tail and not cfg.fast_head
+        if self.packed_tail and (cfg.upsample != "convtranspose" or cfg.head_kernel != 1):
             raise ValueError(
                 "packed_tail requires upsample='convtranspose' and "
                 f"head_kernel=1 (got {cfg.upsample!r}, {cfg.head_kernel})"
@@ -214,11 +218,17 @@ class AdvocGenerator(nn.Module):
         self.bottleneck = nn.Conv2d(cin, feats[-1], 3, padding=1)
         self.ups = nn.ModuleList()
         x_ch = feats[-1]
-        for i, f in enumerate(reversed(feats)):
+        n_ups = len(feats) - 1 if cfg.fast_head else len(feats)
+        for i, f in enumerate(list(reversed(feats))[:n_ups]):
             skip_ch = feats[len(feats) - 1 - i]
-            up = _PackedTailUp if cfg.packed_tail and i == len(feats) - 1 else _Up
+            up = _PackedTailUp if self.packed_tail and i == len(feats) - 1 else _Up
             self.ups.append(up(x_ch + skip_ch, f, cfg))
             x_ch = f
+        if cfg.fast_head:
+            # Half-resolution head on [x | skips[0]]: a 3×3 conv to the 2×2
+            # sub-pixels of p packed bins, channel order (dy, dx, k).
+            self.head = nn.Conv2d(x_ch + feats[0], 4 * p, 3, padding=1)
+            return
         k = cfg.head_kernel
         if k % 2 == 0:
             raise NotImplementedError(
@@ -271,7 +281,14 @@ class AdvocGenerator(nn.Module):
                 x = up(cat)
             else:
                 x = up(torch.cat([x, skip], dim=1))
-        if cfg.packed_tail:
+        if cfg.fast_head:
+            d = _conv(torch.cat([x, skips[0].to(x.dtype)], dim=1), self.head, dt)
+            h, w = d.shape[2:]
+            # Depth-to-space: channel dy·2p + dx·p + k of half-res pixel
+            # (h, w) is frame 2h + dy, bin (2w + dx)·p + k.
+            delta = (d.to(torch.float32).reshape(b, 2, 2, p, h, w)
+                     .permute(0, 4, 1, 5, 2, 3).reshape(b, 2 * h, 2 * w * p))
+        elif self.packed_tail:
             # 1×1 head in the packed layout: the block-diagonal (2f → 2p)
             # product maps lane q·f + c to lane q·p + k with the shared
             # weights, and flattening (w, q, k) is the bin axis.
@@ -287,6 +304,14 @@ class AdvocGenerator(nn.Module):
             delta = delta.permute(0, 2, 3, 1).reshape(b, t, n_bins)
         repaired = torch.clamp(body + delta, 0.0, 1.0)
         return torch.cat([repaired, nyquist], dim=-1)
+
+
+def small_config(**overrides) -> AdvocConfig:
+    """AdVoc-small, the streaming generator: width 24, depth 6, 64-frame
+    chunks, the half-resolution head (the JAX package's ``small_config``)."""
+    base = dict(width=24, depth=6, disc_width=32, n_frames=64, fast_head=True)
+    base.update(overrides)
+    return AdvocConfig(**base)
 
 
 class PatchDiscriminator(nn.Module):

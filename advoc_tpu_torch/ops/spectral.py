@@ -18,11 +18,17 @@ Phase recovery (:func:`griffin_lim`) has two forms:
   the uncropped overlap-add signal, optionally on 512 bins
   (``drop_nyquist``), at ``precision`` "default" (JAX's split_synth, the
   tensor-core kernel) unless "highest" (fp32 throughout) is asked for.
+
+Only the matmul form returns the final phase (``return_final_phase``), as
+in the JAX package: the streaming engine carries it from chunk to chunk.
+:func:`pghi_init_phase` is the magnitude-only starting phase of
+``Vocoder(phase_init="pghi")``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -92,6 +98,13 @@ def _nola_norm(params: AudioParams, n_frames: int, length: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def _nola_norm_on(params: AudioParams, n_frames: int, length: int, device: torch.device) -> Tensor:
+    """:func:`_nola_norm` on ``device``, moved there once: a copy from the
+    host on every overlap-add would make the host wait for the card."""
+    return torch.as_tensor(_nola_norm(params, n_frames, length), device=device)
+
+
+@functools.lru_cache(maxsize=64)
 def _const(params: AudioParams, name: str, device: torch.device) -> Tensor:
     """A named entry of :func:`_consts` / :func:`_dft_consts` as float32 on
     ``device``, moved there once."""
@@ -127,7 +140,7 @@ def _overlap_add(windowed: Tensor, params: AudioParams, length: int) -> Tensor:
         y[:, k : k + n] += blocks[:, :, k]
     pad = n_fft // 2
     y = y.reshape(b, (n + r - 1) * hop)[:, pad : pad + length]
-    return y * torch.as_tensor(_nola_norm(params, n, length), device=y.device)
+    return y * _nola_norm_on(params, n, length, y.device)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +275,8 @@ def griffin_lim(
     init_phase: tuple[Tensor, Tensor] | None = None,
     drop_nyquist: bool = False,
     precision: str | None = None,
-) -> Tensor:
+    return_final_phase: bool = False,
+):
     """Griffin-Lim phase recovery: (..., T, n_freq) → (..., length) waveform.
 
     momentum=0 is classic G-L, ≈0.99 fast G-L. Zero-phase start unless
@@ -272,7 +286,9 @@ def griffin_lim(
     bin is known to be negligible. ``precision`` ("default" or "highest")
     picks the kernel form's mode, None meaning "default" as in the JAX
     package; the matmul form is fp32 whatever it says, as JAX's XLA loop is
-    on the CPU.
+    on the CPU. ``return_final_phase`` (matmul form only) also returns the
+    unit phase (cos, sin) of the last update, shaped like ``mag``: the
+    waveform and that pair.
     """
     if length is None:
         length = mag.shape[-2] * params.hop_length
@@ -280,6 +296,8 @@ def griffin_lim(
     n_frames = mag.shape[-2]
     if drop_nyquist and fft_impl != "kernel":
         raise ValueError("drop_nyquist is a kernel-path option")
+    if return_final_phase and fft_impl != "matmul":
+        raise ValueError("return_final_phase needs fft_impl='matmul'")
     if precision not in (None, "default", "highest"):
         raise ValueError(f"precision must be None, 'default' or 'highest', got {precision!r}")
 
@@ -334,4 +352,27 @@ def griffin_lim(
         uim = nim + m * (nim - prev_im)
         scale = magb / torch.clamp(torch.sqrt(ure * ure + uim * uim), min=1e-16)
         re, im, prev_re, prev_im = ure * scale, uim * scale, nre, nim
-    return synth(re, im).reshape(lead + (length,))
+    y = synth(re, im).reshape(lead + (length,))
+    if return_final_phase:
+        inv_mag = 1.0 / torch.clamp(torch.sqrt(re * re + im * im), min=1e-16)
+        shape = lead + mag.shape[-2:]
+        return y, ((re * inv_mag).reshape(shape), (im * inv_mag).reshape(shape))
+    return y
+
+
+def pghi_init_phase(
+    mag: Tensor, params: AudioParams = DEFAULT_PARAMS, grad_coef: float = 0.0
+) -> tuple[Tensor, Tensor]:
+    """Magnitude-only phase estimate to seed Griffin-Lim (PGHI-style): the
+    per-bin phase advance 2π·hop·f/n_fft plus ``grad_coef`` × the
+    log-magnitude frequency gradient (central differences, one-sided at the
+    edges), summed over frames. (..., T, F) → (cos φ, sin φ), same shape."""
+    f = mag.shape[-1]
+    freqs = torch.arange(f, dtype=torch.float32, device=mag.device)
+    base = 2.0 * math.pi * params.hop_length * freqs / params.n_fft
+    tgrad = torch.broadcast_to(base, mag.shape)
+    if grad_coef:
+        log_m = torch.log(torch.clamp(mag.to(torch.float32), min=1e-10))
+        tgrad = tgrad + grad_coef * torch.gradient(log_m, dim=-1)[0]
+    phase = torch.cumsum(tgrad, dim=-2)
+    return torch.cos(phase), torch.sin(phase)

@@ -18,7 +18,16 @@ after:
   fp32 kernels alone);
 * copy synthesis, wav → ``waveform_to_r9y9_melspec(impl="kernel")`` →
   ``Vocoder`` with ``AdvocGenerator(AdvocConfig(packed_tail=True))`` → wav,
-  on the same two sizes as audio (all three kernels).
+  on the same two sizes as audio (all three kernels);
+* serving (:func:`serving`): the ``StreamingVocoder`` with ``small_config``
+  at its published size (16 streams, 64-frame chunks, 16 G-L iterations,
+  int16 emit), held to the CPU port and to its one-hot masked pushes; the
+  TCP server's ``--selftest 16`` from a port bundle and one client round
+  trip against a direct masked push; ``Vocoder.vocode_longform`` at full
+  width on a 4096-frame utterance against the bucketed call; and
+  ``vocode_cli`` on 8 wavs of mixed lengths, ``--batch 8``, full width,
+  held to the same generator with the plain matmul-scan G-L (the kernel
+  itself is held to its plain version at each of the CLI's batch shapes).
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -34,6 +43,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -123,6 +133,190 @@ def packed_up_work(b: int, h: int, w: int, cin: int, f: int) -> tuple[float, flo
     written once."""
     out = b * 2 * h * w * 2 * f
     return out * 4 * cin * 2, 2 * b * h * w * cin + 4 * (16 * cin * f + f) + 2 * out + 8 * b * 2 * f
+
+
+def serving(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
+    """The serving phase: (a) StreamingVocoder, (b) the TCP server, (c)
+    vocode_longform, (d) vocode_cli, each with the kernel counts set to 0
+    just before it and read just after. Returns the numbers it printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return _serving(pathlib.Path(tmp), dev, gen, voc, mels, mel_l1, zero_counts, counts)
+
+
+def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
+
+    from advoc_tpu_torch.data import audioio
+    from advoc_tpu_torch.data.synthetic import synthetic_speech
+    from advoc_tpu_torch.infer import StreamingVocoder, Vocoder, vocode_cli
+    from advoc_tpu_torch.models.advoc import AdvocGenerator
+    from advoc_tpu_torch.models.advoc.model import small_config
+    from advoc_tpu_torch.ops import spectral as sp
+    from advoc_tpu_torch.serve import VocodeClient, start_in_thread
+    from advoc_tpu_torch.serve.cli import main as serve_main
+    from advoc_tpu_torch.train.checkpoint import export_inference_bundle
+
+    out: dict = {}
+    # -- (a) StreamingVocoder, small_config at its published size ---------------
+    sgen = AdvocGenerator(small_config())
+    sgen.reset_parameters(torch.Generator().manual_seed(5))
+    sgen_cpu = copy.deepcopy(sgen)
+    n_s, n_chunks, chunk = 16, 10, 64
+    utts = np.stack([mels(1, n_chunks * chunk, seed=100 + s)[0].cpu().numpy()
+                     for s in range(n_s)])  # (16, 640, 80)
+    chunks = utts.reshape(n_s, n_chunks, chunk, 80).transpose(1, 0, 2, 3)
+
+    def stream(sv) -> np.ndarray:
+        emits = [sv.push(c) for c in chunks] + [sv.flush()]
+        return np.concatenate(emits, axis=1)
+
+    def streaming_vocoder(g, n=n_s, device="cuda"):
+        return StreamingVocoder(g, n_streams=n, emit_dtype="int16", device=device)
+
+    sv = streaming_vocoder(sgen)
+    zero_counts()
+    sig = stream(sv)
+    torch.cuda.synchronize()
+    out["stream_launches"] = counts()
+    require(sig.dtype == np.int16 and sig.shape == (n_s, n_chunks * chunk * HOP + sv.flush_samples),
+            f"stream output {sig.dtype} {sig.shape}")
+    assembled = sig[:, sv.flush_samples :].astype(np.float32) / 32767.0
+    require(assembled.shape == (n_s, n_chunks * chunk * HOP), "push + flush = T·hop samples")
+    l1_card = mel_l1(torch.tensor(assembled, device=dev), torch.tensor(utts, device=dev))
+    t0 = time.perf_counter()
+    sig_cpu = stream(streaming_vocoder(sgen_cpu, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    l1_cpu = mel_l1(torch.tensor(sig_cpu[:, sv.flush_samples :].astype(np.float32) / 32767.0),
+                    torch.tensor(utts))
+    require(abs(l1_card - l1_cpu) <= 0.1 * l1_cpu, f"stream mel L1 card {l1_card} vs CPU {l1_cpu}")
+    # The server's contract: one-hot masked pushes equal the batched rows.
+    for slot in (0, 7, 15):
+        sv1 = streaming_vocoder(sgen)
+        onehot = np.arange(n_s) == slot
+        for k, c in enumerate(chunks):
+            x = np.zeros_like(c)
+            x[slot] = c[slot]
+            row = sv1.push(x, active=onehot)[slot]
+            require(np.array_equal(row, sig[slot, k * chunk * HOP : (k + 1) * chunk * HOP]),
+                    f"one-hot masked push, slot {slot} chunk {k}, equals the batched row")
+        require(np.array_equal(sv1.flush(active=onehot)[slot], sig[slot, n_chunks * chunk * HOP :]),
+                f"one-hot masked flush, slot {slot}")
+    print(f"serving (a) StreamingVocoder small_config, 16 streams × 10 chunks of 64 frames, "
+          f"16 iterations, int16: launches {out['stream_launches']}; mel L1 card {l1_card:.5f}, "
+          f"CPU port {l1_cpu:.5f} ({cpu_s:.1f} s on the CPU); one-hot masked pushes of slots 0, "
+          f"7, 15 bit-equal to the batched rows; push + flush = exactly T·hop")
+    for n in (16, 1):
+        svn = streaming_vocoder(sgen, n=n)
+        x = chunks[0][:n]
+        out[f"push_ms_{n}"] = cuda_ms(lambda: svn.push(x, readback=False), reps=20)
+        out[f"flush_ms_{n}"] = cuda_ms(lambda: svn.flush(readback=False), reps=20)
+        audio_s = n * chunk * HOP / SR
+        print(f"serving push, {n} stream(s): push {out[f'push_ms_{n}']:.3f} ms "
+              f"({audio_s / (out[f'push_ms_{n}'] / 1e3):.1f}× real time), flush "
+              f"{out[f'flush_ms_{n}']:.3f} ms")
+    svn = streaming_vocoder(sgen)
+    wall_ms, by_name = device_trace(lambda: svn.push(chunks[0], readback=False))
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    launches = sum(n for _, n in by_name.values())
+    out.update(push_trace_wall_ms=wall_ms, push_trace_busy_ms=busy_ms, push_launches=launches)
+    if busy_ms > 0:
+        print(f"device trace of one 16-stream push: wall {wall_ms:.2f} ms, {launches} launches, "
+              f"kernels {busy_ms:.2f} ms, busy share {busy_ms / wall_ms:.3f}")
+        for k, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {ms:8.3f} ms {n:4d}×  {k[:90]}")
+    else:
+        print("device trace of one push: not measured (the profiler recorded no device time)")
+
+    # -- (b) the TCP server on the card, from a port bundle ---------------------
+    export_inference_bundle(tmp / "small", sgen.state_dict(), {"model_size": "small"})
+    zero_counts()
+    res = serve_main(["--selftest", "16", "--pushes", "10", "--bundle", str(tmp / "small"),
+                      "--n_slots", "16", "--device", "cuda"])
+    out["server_launches"] = counts()
+    require(res["n_clients"] == 16 and res["ticks"] >= 10 and res["p50_ms"] > 0,
+            f"selftest result {res}")
+    out["server"] = res
+    handle = start_in_thread(streaming_vocoder(sgen))
+    try:
+        with VocodeClient(*handle.address) as c:
+            got = [c.vocode(m[0]) for m in chunks[:3, :1]]
+            tail = c.flush()
+            ref = streaming_vocoder(sgen)
+            onehot = np.arange(n_s) == c.slot
+            for m, g in zip(chunks[:3], got):
+                x = np.zeros_like(m)
+                x[c.slot] = m[0]
+                require(np.array_equal(g, ref.push(x, active=onehot)[c.slot]),
+                        "client round trip equals a direct masked push")
+            require(np.array_equal(tail, ref.flush(active=onehot)[c.slot]),
+                    "client flush equals a direct masked flush")
+    finally:
+        handle.stop()
+    print(f"serving (b) TCP server --selftest 16 --pushes 10 on the card: launches "
+          f"{out['server_launches']}; p50 {res['p50_ms']} ms, p95 {res['p95_ms']} ms (each "
+          f"client's first push aside; over every push {res['p95_all_ms']} ms), "
+          f"{res['mean_streams_per_tick']} streams per tick, aggregate {res['aggregate_rtf']}× "
+          f"real time; a client's 3 pushes and flush bit-equal to direct masked pushes")
+
+    # -- (c) vocode_longform at full default width, 4096 frames, tile 1024 ------
+    utt = mels(1, 4096, seed=7)[0]
+    zero_counts()
+    t0 = time.perf_counter()
+    wav_lf = voc.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
+    out["longform_s"] = time.perf_counter() - t0
+    out["longform_launches"] = counts()
+    wav_b = voc(utt)
+    require(wav_lf.shape == (4096 * HOP,) and np.isfinite(wav_lf).all(), "longform output")
+    l1_lf = mel_l1(torch.tensor(wav_lf, device=dev), utt)
+    l1_b = mel_l1(wav_b, utt)
+    require(l1_lf < 1.3 * l1_b + 5e-3, f"longform mel L1 {l1_lf} vs bucketed {l1_b}")
+    t0 = time.perf_counter()
+    voc.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
+    out["longform_warm_s"] = time.perf_counter() - t0
+    print(f"serving (c) vocode_longform full width, 4096 frames, tile 1024: launches "
+          f"{out['longform_launches']}; mel L1 {l1_lf:.5f} vs bucketed call {l1_b:.5f}; "
+          f"{out['longform_warm_s'] * 1e3:.1f} ms warm = "
+          f"{4096 * HOP / SR / out['longform_warm_s']:.1f}× real time "
+          f"(first call {out['longform_s'] * 1e3:.1f} ms)")
+
+    # -- (d) vocode_cli, 8 wavs of mixed lengths, --batch 8, full width ---------
+    export_inference_bundle(tmp / "full", gen.state_dict(), {"model_size": "full"})
+    (tmp / "in").mkdir()
+    lengths = [f * HOP + e for f, e in ((150, 17), (230, 0), (255, 100), (300, 5),
+                                        (380, 250), (500, 3), (700, 40), (1000, 128))]
+    for i, n in enumerate(lengths):
+        audioio.save_as_wav(synthetic_speech(200 + i, n), tmp / "in" / f"u{i}.wav")
+    zero_counts()
+    summary = vocode_cli.main(["--input", str(tmp / "in"), "--out_dir", str(tmp / "out"),
+                               "--bundle", str(tmp / "full"), "--batch", "8"])
+    torch.cuda.synchronize()
+    out["cli_launches"] = counts()
+    require(out["cli_launches"]["griffin_lim_tc"] > 0, f"vocode_cli launches {out['cli_launches']}")
+    # The Vocoder gate against the plain G-L: the same generator with the
+    # fp32 matmul scan (phase_impl="xla"), which launches no kernel.
+    voc_ref = Vocoder(gen, device="cuda", phase_impl="xla")
+    cli_l1: list[tuple[float, float]] = []
+    zero_counts()
+    for i, n in enumerate(lengths):
+        got = audioio.decode_audio(tmp / "out" / f"u{i}.wav")
+        frames = 1 + n // HOP
+        require(got.shape == (frames * HOP,), f"vocode_cli u{i}: {got.shape} ≠ {frames * HOP}")
+        wav_in = torch.tensor(audioio.decode_audio(tmp / "in" / f"u{i}.wav"), device=dev)
+        mel = sp.waveform_to_r9y9_melspec(wav_in)
+        l1_cli = mel_l1(torch.tensor(got, device=dev), mel)
+        l1_ref = mel_l1(voc_ref(mel), mel)
+        cli_l1.append((l1_cli, l1_ref))
+        require(l1_cli < 1.1 * l1_ref + 1e-3,
+                f"vocode_cli u{i}: mel L1 {l1_cli} vs matmul-scan Vocoder {l1_ref}")
+    torch.cuda.synchronize()
+    require(not any(counts().values()), f"the matmul-scan reference launched {counts()}")
+    out["cli_x_realtime"] = summary["audio_s"] / summary["seconds"]
+    print(f"serving (d) vocode_cli 8 wavs ({sum(lengths) / SR:.1f} s of audio), --batch 8, full "
+          f"width: launches {out['cli_launches']}; exact lengths; mel L1 (CLI, matmul-scan "
+          f"Vocoder) {', '.join(f'{a:.4f}/{b:.4f}' for a, b in cli_l1)}, each within 1.1 × the "
+          f"scan's + 1e-3; {out['cli_x_realtime']:.1f}× real time after warmup")
+    return out
 
 
 def main() -> int:
@@ -243,8 +437,11 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     main_errs: dict[str, list[float]] = {"highest": [], "default": []}
+    # B=8 at 256, 512, 768 and 1024 frames: the shapes vocode_cli's --batch 8
+    # groups give the kernel in the serving phase (d).
     cases = [(2, 256, False), (2, 1024, False), (2, 256, True), (1, 1024, False),
-             (128, 256, False)]
+             (128, 256, False), (8, 256, False), (8, 512, False), (8, 768, False),
+             (8, 1024, False)]
     for b, t, with_init in cases:
         mel = mels(b, t, seed=t + b)
         mag = sp.r9y9_melspec_to_magspec(mel)[..., :512].contiguous()
@@ -607,7 +804,10 @@ def main() -> int:
     trace("slice wav→wav B=128×256", lambda: copy_synth(wav_in),
           gl_names + ("featurizer_kernel", "packed_up_kernel", "reduce_parts_kernel"))
 
-    # -- 6. Kernels line, then the result ---------------------------------------
+    # -- 6. The serving path -----------------------------------------------------
+    served = serving(dev, gen, voc, mels, mel_l1, zero_counts, counts)
+
+    # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
         "name": "griffin_lim",
         "route": "cuda",
@@ -621,6 +821,8 @@ def main() -> int:
         "launches": slice_launches["griffin_lim"],
         "launches_vocoder_path": voc_launches["griffin_lim"],
         "launches_vocoder_highest": hi_launches["griffin_lim"],
+        "launches_vocode_cli": served["cli_launches"]["griffin_lim"],
+        "launches_streaming": served["stream_launches"]["griffin_lim"],
         "checks": "pass",
         "max_abs_err": max(main_errs["highest"]),
         "ms": gl_ms,
@@ -644,6 +846,8 @@ def main() -> int:
         "precision": "default",
         "launches": slice_launches["griffin_lim_tc"],
         "launches_vocoder_path": voc_launches["griffin_lim_tc"],
+        "launches_vocode_cli": served["cli_launches"]["griffin_lim_tc"],
+        "launches_streaming": served["stream_launches"]["griffin_lim_tc"],
         "checks": "pass",
         "max_abs_err": max(main_errs["default"]),
         "ms": gl_tc_ms,

@@ -280,3 +280,104 @@ def test_packed_up_kernel_rejects_what_it_cannot_take(dev):
     wt = torch.zeros((4, 4, 512, 8), device=dev)
     with pytest.raises(RuntimeError, match="packed_up failed"):
         tpu.packed_up_kernel(x, wt, bias, f=8, tm=8)
+
+
+# -- The streaming engine on the card --------------------------------------------
+
+
+def _stream_chunks(n_streams: int, n_chunks: int, chunk: int = 64) -> np.ndarray:
+    """(n_chunks, n_streams, chunk, 80) mels of synthetic speech."""
+    rows = []
+    for s in range(n_streams):
+        wav = torch.tensor(synthetic_speech(10 + s, n_chunks * chunk * 256))
+        rows.append(sp.waveform_to_r9y9_melspec(wav)[: n_chunks * chunk].numpy())
+    return np.stack(rows).reshape(n_streams, n_chunks, chunk, 80).transpose(1, 0, 2, 3)
+
+
+def _small_generator():
+    from advoc_tpu_torch.models.advoc.model import small_config
+
+    g = AdvocGenerator(small_config())
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    return g
+
+
+def test_streaming_masked_rows_are_bit_exact(dev):
+    """One-hot masked pushes (what the server sends for one slot) equal the
+    slot's row of all-active pushes bit for bit: the same batch shape takes
+    the same cuBLAS and cuDNN algorithms, whose rows do not read each other."""
+    from advoc_tpu_torch.infer import StreamingVocoder
+
+    g = _small_generator()
+    chunks = _stream_chunks(4, 3)
+    batched = StreamingVocoder(g, n_streams=4, device=dev)
+    rows = [batched.push(c) for c in chunks]
+    for slot in (0, 3):
+        sv = StreamingVocoder(g, n_streams=4, device=dev)
+        onehot = np.arange(4) == slot
+        for k, c in enumerate(chunks):
+            x = np.zeros_like(c)
+            x[slot] = c[slot]
+            np.testing.assert_array_equal(sv.push(x, active=onehot)[slot], rows[k][slot])
+    tail = batched.flush(active=np.arange(4) == 1)
+    np.testing.assert_array_equal(tail[0], 0)
+
+
+def test_streaming_card_against_cpu(dev):
+    """The card's push against the same engine on the CPU. The heuristic
+    engine's first push at 2 iterations (fp32 products on both): within
+    2e-3 × peak, the bound between two float32 programs of
+    tests/test_torch_streaming.py. With the bf16 small generator, whole
+    streams at 16 iterations (G-L is chaotic): re-extracted mel L1 within
+    10%."""
+    from advoc_tpu_torch.infer import StreamingVocoder
+
+    g = _small_generator()
+    chunks = _stream_chunks(2, 6)
+    card = StreamingVocoder(n_streams=2, gl_iters=2, device=dev)
+    want = StreamingVocoder(n_streams=2, gl_iters=2, device="cpu").push(chunks[0])
+    np.testing.assert_allclose(card.push(chunks[0]), want, atol=2e-3 * np.abs(want).max())
+    l1 = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        sv = StreamingVocoder(g, n_streams=2, gl_iters=16, device=d)
+        sig = np.concatenate([sv.push(c) for c in chunks] + [sv.flush()], axis=1)
+        sig = sig[:, sv.flush_samples :]
+        assert sig.shape == (2, 6 * 64 * 256)
+        mel = torch.tensor(chunks.transpose(1, 0, 2, 3).reshape(2, -1, 80))
+        got = sp.waveform_to_r9y9_melspec(torch.tensor(sig))[:, : mel.shape[1]]
+        l1[name] = float((got - mel).abs().mean())
+    assert abs(l1["card"] - l1["cpu"]) < 0.1 * l1["cpu"], l1
+
+
+def test_streaming_int16_emit_on_the_card(dev):
+    """The int16 emit, converted on the card, equals the float emit of an
+    identical engine through save_as_wav's rounding, bit for bit."""
+    from advoc_tpu_torch.infer import StreamingVocoder
+
+    g = _small_generator()
+    chunks = _stream_chunks(2, 2)
+    f = StreamingVocoder(g, n_streams=2, device=dev)
+    q = StreamingVocoder(g, n_streams=2, device=dev, emit_dtype="int16")
+    for c in chunks:
+        emit = q.push(c, readback=False)
+        assert emit.is_cuda and emit.dtype == torch.int16
+        ref = f.push(c)
+        np.testing.assert_array_equal(
+            emit.cpu().numpy(), np.round(np.clip(ref, -1.0, 1.0) * 32767.0).astype(np.int16))
+    np.testing.assert_array_equal(
+        q.flush(), np.round(np.clip(f.flush(), -1.0, 1.0) * 32767.0).astype(np.int16))
+
+
+def test_vocode_cli_takes_the_tensor_core_kernel(dev, tmp_path):
+    """The offline CLI on the card runs the tensor-core G-L kernel."""
+    from advoc_tpu_torch.data import audioio
+    from advoc_tpu_torch.infer import vocode_cli
+
+    (tmp_path / "in").mkdir()
+    for i, n in enumerate((100 * 256 + 37, 300 * 256)):
+        audioio.save_as_wav(synthetic_speech(i, n), tmp_path / "in" / f"{i}.wav")
+    before = tgl.griffin_lim_kernel.tc_launches
+    vocode_cli.main(["--input", str(tmp_path / "in"), "--out_dir", str(tmp_path / "out"),
+                     "--gl_iters", "4", "--batch", "2"])
+    assert tgl.griffin_lim_kernel.tc_launches > before
+    assert len(list((tmp_path / "out").glob("*.wav"))) == 2

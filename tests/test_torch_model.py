@@ -17,12 +17,14 @@ import torch.nn.functional as F
 
 from advoc_tpu.models.advoc import model as jmodel
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator, flax_to_torch_state_dict
-from advoc_tpu_torch.models.advoc.model import GroupNorm, PatchDiscriminator
+from advoc_tpu_torch.models.advoc.model import GroupNorm, PatchDiscriminator, small_config
 
 
-def _pair(t_frames, **cfg):
-    """(flax output, port output) of one random init on one random input."""
-    jcfg = jmodel.AdvocConfig(n_frames=t_frames, **cfg)
+def _pair(t_frames, small=False, **cfg):
+    """(flax output, port output) of one random init on one random input;
+    ``small`` builds both from their package's ``small_config``."""
+    jcfg = (jmodel.small_config(n_frames=t_frames, **cfg) if small
+            else jmodel.AdvocConfig(n_frames=t_frames, **cfg))
     g = jmodel.AdvocGenerator(jcfg)
     # jit: one compile of the whole graph is far quicker than op-by-op.
     params = jax.jit(g.init)(jax.random.PRNGKey(0), jnp.zeros((1, t_frames, jcfg.n_freq)))
@@ -30,7 +32,9 @@ def _pair(t_frames, **cfg):
     x = np.random.default_rng(0).uniform(0, 1, (2, t_frames, jcfg.n_freq)).astype(np.float32)
     x[:, :, -1] = 0.25  # the Nyquist bin passes through
     want = np.asarray(jax.jit(g.apply)({"params": params}, jnp.asarray(x)))
-    tcfg = AdvocConfig(n_frames=t_frames, **cfg)
+    tcfg = (small_config(n_frames=t_frames, **cfg) if small
+            else AdvocConfig(n_frames=t_frames, **cfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     tg = AdvocGenerator(tcfg)
     tg.load_state_dict(flax_to_torch_state_dict(jax.tree.map(np.asarray, params), tcfg))
     with torch.no_grad():
@@ -92,6 +96,64 @@ class TestPackedTail:
         """The JAX generator's ValueError (tests/test_models.py pins it there)."""
         with pytest.raises(ValueError, match="packed_tail requires"):
             AdvocGenerator(AdvocConfig(packed_tail=True, **cfg))
+
+
+class TestFastHead:
+    """fast_head (the half-resolution head of small_config) against flax on
+    the same converted weights, at TestGenerator's tolerances."""
+
+    def test_f32_small(self):
+        want, got = _pair(64, small=True, width=8, depth=4, dtype="float32")
+        np.testing.assert_allclose(got, want, atol=2e-5)
+
+    def test_bf16_small(self):
+        want, got = _pair(32, small=True, width=8, depth=3, dtype="bfloat16")
+        np.testing.assert_allclose(got, want, atol=0.05)
+        assert np.abs(got - want).mean() < 5e-3
+
+    def test_small_config_at_its_published_width(self):
+        """width 24, depth 6, 64 frames, in float32 (B=2)."""
+        want, got = _pair(64, small=True, dtype="float32")
+        np.testing.assert_allclose(got, want, atol=5e-5)
+
+    def test_packed_tail_is_ignored(self):
+        """JAX ignores packed_tail under fast_head (model.py:449), also with
+        options packed_tail would refuse."""
+        want, got = _pair(32, small=True, width=8, depth=3, dtype="float32",
+                          packed_tail=True, head_kernel=4)
+        np.testing.assert_allclose(got, want, atol=2e-5)
+
+    def test_depth_to_space_order(self):
+        """Channel dy·2p + dx·p + k of half-res pixel (h, w) lands on frame
+        2h + dy, bin (2w + dx)·p + k: a head that writes its channel index
+        everywhere shows the order, against the flax reshape."""
+        cfg = small_config(n_frames=8, width=8, depth=2, dtype="float32")
+        g = AdvocGenerator(cfg)
+        with torch.no_grad():
+            for m in g.modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                    m.weight.zero_()
+                    m.bias.zero_()
+            g.head.bias.copy_(torch.arange(8, dtype=torch.float32) / 100.0)  # 4·p, p = 2
+            out = g(torch.zeros(1, 8, 513))
+        d = jnp.broadcast_to(jnp.arange(8, dtype=jnp.float32) / 100.0, (1, 4, 128, 8))
+        want = np.asarray(d.reshape(1, 4, 128, 2, 2, 2).transpose(0, 1, 3, 2, 4, 5)
+                          .reshape(1, 8, 512))
+        np.testing.assert_array_equal(out[0, :, :512].numpy(), want[0])
+
+    def test_converter_name_map(self):
+        """No up{depth-1}; head is a 3×3 conv to 4·p: the tree loads
+        strictly, and a full-head tree does not fit."""
+        cfg = jmodel.small_config(n_frames=32, width=8, depth=3, dtype="float32")
+        tree = jax.tree.map(np.asarray, jax.jit(jmodel.AdvocGenerator(cfg).init)(
+            jax.random.PRNGKey(0), jnp.zeros((1, 32, cfg.n_freq)))["params"])
+        assert "up2" not in tree and tree["head"]["kernel"].shape == (3, 3, 16 + 8, 8)
+        tcfg = small_config(n_frames=32, width=8, depth=3, dtype="float32")
+        g = AdvocGenerator(tcfg)
+        g.load_state_dict(flax_to_torch_state_dict(tree, tcfg), strict=True)
+        assert len(g.ups) == 2 and tuple(g.head.weight.shape) == (8, 24, 3, 3)
+        with pytest.raises(ValueError, match="missing.*up2"):
+            flax_to_torch_state_dict(tree, dataclasses.replace(tcfg, fast_head=False))
 
 
 class TestLayerDivergences:
@@ -203,8 +265,8 @@ class TestInitAndModes:
         torch.testing.assert_close(h.state_dict(), g.state_dict(), rtol=0, atol=0)
 
     @pytest.mark.parametrize("cfg", [
-        dict(fast_head=True), dict(fast_head=True, packed_tail=True), dict(upsample="subpixel"),
-        dict(head_kernel=4),
+        dict(upsample="pixelshuffle"), dict(fast_head=True, upsample="resize"),
+        dict(upsample="subpixel"), dict(head_kernel=4),
     ])
     def test_unported_modes_raise(self, cfg):
         with pytest.raises(NotImplementedError):

@@ -175,14 +175,17 @@ class TestVocoder:
             Vocoder()
 
     @pytest.mark.parametrize("kw", [
-        dict(mesh=object()), dict(phase_method="lws_exact"), dict(phase_init="pghi"),
+        dict(mesh=object()), dict(phase_method="lws_exact"),
+        dict(phase_method="lws_exact", phase_init="pghi"),
     ])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError):
             Vocoder(device="cpu", **kw)
 
     def test_unported_entry_points_raise(self, mel):
-        with pytest.raises(NotImplementedError):
-            Vocoder(device="cpu").vocode_longform(mel)
-        with pytest.raises(NotImplementedError):
-            StreamingVocoder()
+        """vocode_longform and the gl StreamingVocoder are ported
+        (test_torch_streaming.py); the lws engines and mel_context are not."""
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            StreamingVocoder(phase_engine="lws_online", device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            StreamingVocoder(mel_context=4, device="cpu")
