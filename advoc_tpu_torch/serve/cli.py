@@ -41,7 +41,8 @@ def build_vocoder(args):
     return StreamingVocoder(
         generator, params=P, chunk_frames=args.chunk_frames, n_streams=args.n_slots,
         gl_iters=args.gl_iters, phase_engine=args.engine,
-        overlap_frames=args.overlap_frames, mel_context=args.mel_context,
+        overlap_frames=args.overlap_frames, lws_sweeps=args.lws_sweeps,
+        lws_look_ahead=args.lws_look_ahead, mel_context=args.mel_context,
         emit_dtype=args.emit_dtype, mel_dtype=args.mel_dtype,
         mel_projection=args.mel_projection, device=args.device,
     )
@@ -70,13 +71,18 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model_overrides", default=None,
                    help="default: the bundle config's overrides")
     p.add_argument("--engine", choices=["gl", "lws_online", "lws_block"], default="gl",
-                   help="phase engine; the lws engines are not ported yet and raise")
+                   help="phase engine: G-L with a crossfade, or streaming LWS")
     p.add_argument("--chunk_frames", type=int, default=64)
     p.add_argument("--gl_iters", type=int, default=16)
     p.add_argument("--overlap_frames", type=int, default=8,
                    help="gl engine: crossfade overlap = emission delay")
+    p.add_argument("--lws_sweeps", type=int, default=None,
+                   help="lws engines: sweeps per arrival (default 4 lws_block, 2 lws_online)")
+    p.add_argument("--lws_look_ahead", type=int, default=2,
+                   help="lws engines: frames of look-ahead (latency)")
     p.add_argument("--mel_context", type=int, default=0,
-                   help="a lws-engine option, not ported yet: nonzero raises")
+                   help="lws engines: mel frames of generator context on each side, "
+                        "at as many frames of latency")
     p.add_argument("--mel_projection", type=float, default=None,
                    help="post-repair mel-consistency projection strength; "
                         "default auto (1.0 with a model, 0.0 heuristic)")

@@ -27,7 +27,16 @@ after:
   width on a 4096-frame utterance against the bucketed call; and
   ``vocode_cli`` on 8 wavs of mixed lengths, ``--batch 8``, full width,
   held to the same generator with the plain matmul-scan G-L (the kernel
-  itself is held to its plain version at each of the CLI's batch shapes).
+  itself is held to its plain version at each of the CLI's batch shapes);
+* the LWS slice (:func:`lws_phases`), where no port kernel runs: the
+  one-call heuristic vocoders (``r9y9_melspec_to_waveform``, all five phase
+  methods, and G-L's fft form) at bench.py's config 1, B=32 × 256 frames;
+  the full-width ``Vocoder(phase_method="lws_exact")``; the
+  ``lws_online`` and ``lws_block`` streaming engines at the serve CLI's
+  defaults (masked rows bit-exact, exact stream lengths, the card's
+  ``lws_online_push`` the same in chunks of 64 and of 16, mel L1 within 10%
+  of the CPU port's), one ``mel_context=32`` stream; and the TCP server
+  on ``--engine lws_block``.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -85,7 +94,9 @@ def device_trace(fn) -> tuple[float, dict[str, tuple[float, int]]]:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Device activity alone: recording every host op of a call of ≈ 10k
+    # launches would cost the script seconds, and only kernels are read.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         fn()
         end.record()
@@ -260,12 +271,15 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
           f"real time; a client's 3 pushes and flush bit-equal to direct masked pushes")
 
     # -- (c) vocode_longform at full default width, 4096 frames, tile 1024 ------
+    # At the Vocoder's own gl_precision: None is "default" (the engine's
+    # matmul G-L loop with bf16 operands, JAX's DEFAULT), and "highest".
     utt = mels(1, 4096, seed=7)[0]
     zero_counts()
     t0 = time.perf_counter()
     wav_lf = voc.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
     out["longform_s"] = time.perf_counter() - t0
     out["longform_launches"] = counts()
+    require(voc._longform[(1024, 32)].gl_precision == "default", "longform engine precision")
     wav_b = voc(utt)
     require(wav_lf.shape == (4096 * HOP,) and np.isfinite(wav_lf).all(), "longform output")
     l1_lf = mel_l1(torch.tensor(wav_lf, device=dev), utt)
@@ -274,11 +288,19 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     t0 = time.perf_counter()
     voc.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
     out["longform_warm_s"] = time.perf_counter() - t0
+    voc_hi = Vocoder(gen, device="cuda", gl_precision="highest")
+    wav_hi = voc_hi.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
+    t0 = time.perf_counter()
+    voc_hi.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
+    out["longform_highest_warm_s"] = time.perf_counter() - t0
+    l1_hi = mel_l1(torch.tensor(wav_hi, device=dev), utt)
+    require(abs(l1_lf - l1_hi) < 2e-3, f"longform mel L1 default {l1_lf} vs highest {l1_hi}")
     print(f"serving (c) vocode_longform full width, 4096 frames, tile 1024: launches "
           f"{out['longform_launches']}; mel L1 {l1_lf:.5f} vs bucketed call {l1_b:.5f}; "
           f"{out['longform_warm_s'] * 1e3:.1f} ms warm = "
           f"{4096 * HOP / SR / out['longform_warm_s']:.1f}× real time "
-          f"(first call {out['longform_s'] * 1e3:.1f} ms)")
+          f"(first call {out['longform_s'] * 1e3:.1f} ms); at gl_precision='highest' mel L1 "
+          f"{l1_hi:.5f} (default within 2e-3), {out['longform_highest_warm_s'] * 1e3:.1f} ms warm")
 
     # -- (d) vocode_cli, 8 wavs of mixed lengths, --batch 8, full width ---------
     export_inference_bundle(tmp / "full", gen.state_dict(), {"model_size": "full"})
@@ -316,6 +338,224 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
           f"width: launches {out['cli_launches']}; exact lengths; mel L1 (CLI, matmul-scan "
           f"Vocoder) {', '.join(f'{a:.4f}/{b:.4f}' for a, b in cli_l1)}, each within 1.1 × the "
           f"scan's + 1e-3; {out['cli_x_realtime']:.1f}× real time after warmup")
+    return out
+
+
+def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
+    """The LWS slice: (e) the one-call heuristic vocoders at bench.py's config
+    1, (f) the full-width Vocoder with phase_method="lws_exact", (g) the
+    streaming lws engines at the serve CLI's defaults and (h) the TCP server
+    on lws_block. None of these paths runs a port kernel (the JAX package's
+    have no Pallas call either): every count must stay 0. Returns the
+    numbers it printed."""
+    import tempfile
+
+    from advoc_tpu_torch.infer import StreamingVocoder, Vocoder
+    from advoc_tpu_torch.models.advoc import AdvocGenerator
+    from advoc_tpu_torch.models.advoc.model import small_config
+    from advoc_tpu_torch.ops import spectral as sp
+    from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS
+    from advoc_tpu_torch.serve.cli import main as serve_main
+    from advoc_tpu_torch.train.checkpoint import export_inference_bundle
+
+    out: dict = {}
+    t_start = time.perf_counter()
+
+    def no_kernel(what: str) -> None:
+        torch.cuda.synchronize()
+        require(not any(counts().values()), f"{what}: port kernels launched {counts()}")
+
+    def traced(fn) -> tuple[int, float | None]:
+        """Launches and busy share of one traced call (None: no device time)."""
+        wall_ms, by_name = device_trace(fn)
+        busy = sum(ms for ms, _ in by_name.values())
+        return sum(n for _, n in by_name.values()), (busy / wall_ms if busy > 0 else None)
+
+    # -- (e) heuristic vocoders, bench.py config 1: B=32 × 256 frames -----------
+    # G-L at bench.py's 30 iterations; the LWS modes at 5 sweeps (the JAX
+    # package's A/B point) and lws_online at its default 2: cuts of the
+    # script's time. Each mel L1 is held to the CPU port's on row 0.
+    mel_b = mels(32, 256, seed=0)
+    mel_row = mel_b[:1].cpu()
+    audio_s = 32 * 256 * HOP / SR
+    for mode, n_iters in (("lws", 30), ("griffin_lim", 30), ("lws_chromatic", 5),
+                          ("lws_exact", 5), ("lws_online", 2)):
+        def run(m=mel_b, mode=mode, n_iters=n_iters):
+            return sp.r9y9_melspec_to_waveform(m, n_iters=n_iters, phase_method=mode)
+
+        zero_counts()
+        wav = run()
+        no_kernel(f"r9y9_melspec_to_waveform({mode!r})")
+        require(tuple(wav.shape) == (32, 256 * HOP) and bool(torch.isfinite(wav).all()),
+                f"{mode} output {tuple(wav.shape)}")
+        ms = cuda_ms(run, reps=1)
+        launches, busy = traced(run)
+        l1, l1_row = mel_l1(wav, mel_b), mel_l1(wav[:1], mel_b[:1])
+        l1_cpu = mel_l1(run(mel_row), mel_row)
+        require(abs(l1_row - l1_cpu) <= 0.1 * l1_cpu,
+                f"{mode}: row 0 mel L1 card {l1_row} vs CPU {l1_cpu}")
+        out[f"e_{mode}"] = dict(n_iters=n_iters, ms=ms, x_realtime=audio_s / (ms / 1e3),
+                                launches=launches, busy_share=busy, mel_l1=l1,
+                                mel_l1_row0=l1_row, mel_l1_row0_cpu=l1_cpu)
+        print(f"(e) r9y9_melspec_to_waveform {mode!r}, {n_iters} iterations, B=32×256: "
+              f"{ms:.2f} ms = {audio_s / (ms / 1e3):.1f}× real time, {launches} launches, busy "
+              f"share {busy if busy is None else round(busy, 3)}; mel L1 {l1:.5f}, row 0 "
+              f"{l1_row:.5f} (CPU port {l1_cpu:.5f})")
+    mag = sp.r9y9_melspec_to_magspec(mel_b)
+    l1_fft = mel_l1(sp.griffin_lim(mag, n_iters=30, momentum=0.99, fft_impl="fft"), mel_b)
+    l1_mm = mel_l1(sp.griffin_lim(mag, n_iters=30, momentum=0.99), mel_b)
+    require(abs(l1_fft - l1_mm) < 2e-3, f"G-L fft form mel L1 {l1_fft} vs matmul {l1_mm}")
+    out["e_fft_ms"] = cuda_ms(lambda: sp.griffin_lim(mag, n_iters=30, momentum=0.99,
+                                                     fft_impl="fft"), reps=2)
+    out["e_matmul_ms"] = cuda_ms(lambda: sp.griffin_lim(mag, n_iters=30, momentum=0.99), reps=2)
+    print(f"(e) griffin_lim 30 iterations momentum 0.99 B=32×256: fft form (cuFFT) "
+          f"{out['e_fft_ms']:.2f} ms, mel L1 {l1_fft:.5f}; matmul form {out['e_matmul_ms']:.2f} "
+          f"ms, mel L1 {l1_mm:.5f}")
+    del mag
+    out["e_s"] = time.perf_counter() - t_start
+
+    # -- (f) the full-width Vocoder, phase_method="lws_exact", 5 sweeps -----------
+    voc_lws = Vocoder(gen, device="cuda", phase_method="lws_exact", gl_iters=5)
+    batch = mels(32, 256, seed=1)
+    zero_counts()
+    wav = voc_lws(batch)
+    no_kernel("Vocoder(phase_method='lws_exact')")
+    require(tuple(wav.shape) == (32, 256 * HOP) and bool(torch.isfinite(wav).all()),
+            "lws_exact Vocoder output")
+    l1, l1_gl = mel_l1(wav, batch), mel_l1(voc(batch), batch)
+    p = DEFAULT_PARAMS
+    with torch.inference_mode():
+        est_norm = sp.normalize_db(sp.amp_to_db(sp.r9y9_melspec_to_magspec(batch)) - p.ref_level_db)
+        mag = sp.mel_consistency_project(
+            sp.db_to_amp(sp.denormalize_db(gen(est_norm)) + p.ref_level_db), batch)
+        stages = {"estimate_ms": cuda_ms(lambda: sp.normalize_db(
+                      sp.amp_to_db(sp.r9y9_melspec_to_magspec(batch)) - p.ref_level_db)),
+                  "unet_ms": cuda_ms(lambda: gen(est_norm)),
+                  "projection_ms": cuda_ms(lambda: sp.mel_consistency_project(mag, batch)),
+                  "lws_ms": cuda_ms(lambda: sp.lws(mag, n_sweeps=5), reps=1)}
+    out["f_ms"] = cuda_ms(lambda: voc_lws(batch), reps=1)
+    out["f_stages"], out["f_mel_l1"] = stages, l1
+    print(f"(f) Vocoder full width phase_method='lws_exact' 5 sweeps, B=32×256: "
+          f"{out['f_ms']:.2f} ms = {audio_s / (out['f_ms'] / 1e3):.1f}× real time; stages "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; mel L1 {l1:.5f} (fast G-L Vocoder {l1_gl:.5f}); no G-L kernel launched")
+    del mag, est_norm, wav
+    out["f_s"] = time.perf_counter() - t_start
+
+    # -- (g) the streaming lws engines, small_config, 16 streams × 10 chunks ------
+    sgen = AdvocGenerator(small_config())
+    sgen.reset_parameters(torch.Generator().manual_seed(5))
+    sgen_cpu = copy.deepcopy(sgen)
+    n_s, n_chunks, chunk = 16, 10, 64
+    utts = np.stack([mels(1, n_chunks * chunk, seed=100 + s)[0].cpu().numpy()
+                     for s in range(n_s)])  # (16, 640, 80)
+    chunks = utts.reshape(n_s, n_chunks, chunk, 80).transpose(1, 0, 2, 3)
+
+    # lws_online_push on the card in chunks of 64 and of 16: the same bits.
+    mag_s = sp.r9y9_melspec_to_magspec(torch.tensor(utts[:, :128], device=dev))
+
+    def online_frames(cs: int) -> torch.Tensor:
+        carry, ems = sp.lws_online_init(n_s, 2, device=dev), []
+        for c0 in range(0, 128, cs):
+            (er, ei), carry = sp.lws_online_push(mag_s[:, c0 : c0 + cs], carry)
+            ems.append(torch.complex(er, ei))
+        return torch.cat(ems, dim=1)
+
+    require(torch.equal(online_frames(64), online_frames(16)),
+            "lws_online_push in chunks of 64 and of 16 bit-equal on the card")
+    del mag_s
+    for engine in ("lws_online", "lws_block"):
+        def engine_sv(n=n_s, device="cuda", g=sgen, engine=engine, **kw):
+            return StreamingVocoder(g, n_streams=n, emit_dtype="int16", phase_engine=engine,
+                                    device=device, **kw)
+
+        sv = engine_sv()
+        zero_counts()
+        sig = np.concatenate([sv.push(c) for c in chunks] + [sv.flush()], axis=1)
+        no_kernel(f"StreamingVocoder {engine}")
+        require(sig.dtype == np.int16
+                and sig.shape == (n_s, n_chunks * chunk * HOP + sv.flush_samples),
+                f"{engine} stream output {sig.dtype} {sig.shape}")
+        assembled = sig[:, sv.flush_samples :].astype(np.float32) / 32767.0
+        require(assembled.shape == (n_s, n_chunks * chunk * HOP), "push + flush = T·hop samples")
+        l1_card = mel_l1(torch.tensor(assembled[:1], device=dev), torch.tensor(utts[:1], device=dev))
+        svc = engine_sv(n=1, device="cpu", g=sgen_cpu)
+        t0 = time.perf_counter()
+        sig_c = np.concatenate([svc.push(c[0]) for c in chunks] + [svc.flush()])
+        cpu_s = time.perf_counter() - t0
+        l1_cpu = mel_l1(torch.tensor(sig_c[svc.flush_samples :].astype(np.float32)[None] / 32767.0),
+                        torch.tensor(utts[:1]))
+        require(abs(l1_card - l1_cpu) <= 0.1 * l1_cpu,
+                f"{engine} stream mel L1 card {l1_card} vs CPU {l1_cpu}")
+        for slot in (0, 7, 15):
+            sv1 = engine_sv()
+            onehot = np.arange(n_s) == slot
+            for k, c in enumerate(chunks):
+                x = np.zeros_like(c)
+                x[slot] = c[slot]
+                require(np.array_equal(sv1.push(x, active=onehot)[slot],
+                                       sig[slot, k * chunk * HOP : (k + 1) * chunk * HOP]),
+                        f"{engine} one-hot masked push, slot {slot} chunk {k}")
+            require(np.array_equal(sv1.flush(active=onehot)[slot], sig[slot, n_chunks * chunk * HOP :]),
+                    f"{engine} one-hot masked flush, slot {slot}")
+        res = {"mel_l1_row0": l1_card, "mel_l1_row0_cpu": l1_cpu, "cpu_stream_s": cpu_s}
+        for n in (16, 1):
+            svn = engine_sv(n=n)
+            x = chunks[0][:n]
+            res[f"push_ms_{n}"] = cuda_ms(lambda: svn.push(x, readback=False), reps=5)
+            res[f"flush_ms_{n}"] = cuda_ms(lambda: svn.flush(readback=False), reps=5)
+        svn = engine_sv()
+        wall_ms, by_name = device_trace(lambda: svn.push(chunks[0], readback=False))
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        res["launches_per_push"] = sum(n for _, n in by_name.values())
+        res["busy_share"] = busy_ms / wall_ms if busy_ms > 0 else None
+        res["launches_by_kernel"] = dict(
+            sorted(((k[:100], n) for k, (_, n) in by_name.items()), key=lambda kv: -kv[1])[:10])
+        out[f"g_{engine}"] = res
+        busy = res["busy_share"]
+        print(f"(g) StreamingVocoder {engine} small_config, 16 streams × 10 chunks of 64, "
+              f"int16: push {res['push_ms_16']:.2f} ms at 16 streams "
+              f"({16 * chunk * HOP / SR / (res['push_ms_16'] / 1e3):.1f}× real time), "
+              f"{res['push_ms_1']:.2f} ms at 1; flush {res['flush_ms_16']:.2f} / "
+              f"{res['flush_ms_1']:.2f} ms; {res['launches_per_push']} launches per push, busy "
+              f"share {busy if busy is None else round(busy, 3)}; mel L1 row 0 card "
+              f"{l1_card:.5f}, CPU port {l1_cpu:.5f} ({cpu_s:.1f} s on the CPU); one-hot masked "
+              f"pushes of slots 0, 7, 15 bit-equal; push + flush = exactly T·hop; launches by "
+              f"kernel {res['launches_by_kernel']}")
+    print("(g) lws_online_push in chunks of 64 and 16 bit-equal on the card")
+    svc = StreamingVocoder(sgen, emit_dtype="int16", phase_engine="lws_block", mel_context=32,
+                           device="cuda")
+    sig1 = np.concatenate([svc.push(c[0]) for c in chunks] + [svc.flush()])
+    require(svc.latency_frames == 2 + 32
+            and sig1.shape == (n_chunks * chunk * HOP + svc.flush_samples,),
+            f"lws_block mel_context=32 stream {sig1.shape}")
+    l1_ctx = mel_l1(torch.tensor(sig1[svc.flush_samples :].astype(np.float32)[None] / 32767.0,
+                                 device=dev), torch.tensor(utts[:1], device=dev))
+    out["g_ctx32_push_ms"] = cuda_ms(lambda: svc.push(chunks[0][0], readback=False), reps=5)
+    print(f"(g) lws_block mel_context=32, one stream (64 + 2·32 = 128 frames through the "
+          f"generator): push {out['g_ctx32_push_ms']:.2f} ms, mel L1 {l1_ctx:.5f} (row 0 without "
+          f"context {out['g_lws_block']['mel_l1_row0']:.5f}); push + flush = exactly T·hop")
+    out["g_s"] = time.perf_counter() - t_start
+
+    # -- (h) the TCP server on lws_block ------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lws_") as tmp:
+        export_inference_bundle(pathlib.Path(tmp) / "small", sgen.state_dict(),
+                                {"model_size": "small"})
+        zero_counts()
+        res = serve_main(["--selftest", "16", "--pushes", "10", "--engine", "lws_block",
+                          "--bundle", str(pathlib.Path(tmp) / "small"), "--n_slots", "16",
+                          "--device", "cuda"])
+        no_kernel("server lws_block")
+    require(res["n_clients"] == 16 and res["engine"] == "lws_block" and res["ticks"] >= 10
+            and res["p50_ms"] > 0, f"lws_block selftest result {res}")
+    out["h_server"] = res
+    print(f"(h) TCP server --selftest 16 --pushes 10 --engine lws_block: p50 {res['p50_ms']} ms, "
+          f"p95 {res['p95_ms']} ms (over every push {res['p95_all_ms']} ms), "
+          f"{res['mean_streams_per_tick']} streams per tick, aggregate {res['aggregate_rtf']}× "
+          f"real time")
+    out["lws_phases_s"] = time.perf_counter() - t_start
+    print(f"phases (e)-(h) took {out['lws_phases_s']:.1f} s (done at (e) {out['e_s']:.1f} s, "
+          f"(f) {out['f_s']:.1f} s, (g) {out['g_s']:.1f} s)")
     return out
 
 
@@ -806,6 +1046,7 @@ def main() -> int:
 
     # -- 6. The serving path -----------------------------------------------------
     served = serving(dev, gen, voc, mels, mel_l1, zero_counts, counts)
+    lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts)
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{

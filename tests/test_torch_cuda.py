@@ -381,3 +381,87 @@ def test_vocode_cli_takes_the_tensor_core_kernel(dev, tmp_path):
                      "--gl_iters", "4", "--batch", "2"])
     assert tgl.griffin_lim_kernel.tc_launches > before
     assert len(list((tmp_path / "out").glob("*.wav"))) == 2
+
+
+# -- LWS and the matmul G-L's default precision on the card ------------------------
+
+
+def _lws_mag(t: int = 32, rows: int = 2) -> torch.Tensor:
+    """(rows, t, 513) magnitudes of synthetic speech, on the CPU."""
+    wav = torch.tensor(synthetic_speech(3, rows * t * 256)).reshape(rows, -1)
+    return sp.waveform_to_magspec(wav)[:, :t].contiguous()
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def test_lws_on_the_card_matches_cpu(dev):
+    """Batch LWS (sequential and chromatic) and block pushes: the card's fp32
+    GEMMs sum in another order than the CPU's, ≤ 1e-4 relative."""
+    mag = _lws_mag()
+    for colors in (1, 4):
+        assert _rel(sp.lws(mag.to(dev), n_sweeps=3, colors=colors),
+                    sp.lws(mag, n_sweeps=3, colors=colors)) < 1e-4
+    got, want = [], []
+    for m, carry, out in ((mag.to(dev), sp.lws_online_init(2, device=dev), got),
+                          (mag, sp.lws_online_init(2), want)):
+        for c0 in range(0, 32, 8):
+            (er, ei), carry = sp.lws_block_push(m[:, c0 : c0 + 8], carry)
+            out.append(torch.complex(er, ei).cpu())
+    assert _rel(torch.cat(got, 1), torch.cat(want, 1)) < 1e-4
+
+
+def test_lws_online_push_chunk_invariance_on_the_card(dev):
+    """Chunks of 8, 4 and 1 emit the same bits on the card; against the CPU
+    within the online bound of test_torch_lws.py, 2e-3."""
+    mag = _lws_mag(24).to(dev)
+
+    def run(cs, m=mag):
+        carry, ems = sp.lws_online_init(2, device=m.device), []
+        for c0 in range(0, 24, cs):
+            (er, ei), carry = sp.lws_online_push(m[:, c0 : c0 + cs], carry)
+            ems.append(torch.complex(er, ei))
+        return torch.cat(ems, 1)
+
+    em8 = run(8)
+    assert em8.is_cuda
+    for cs in (4, 1):
+        assert torch.equal(run(cs), em8)
+    assert _rel(em8, run(8, mag.cpu())) < 2e-3
+
+
+@pytest.mark.parametrize("engine", ["lws_online", "lws_block"])
+def test_lws_streaming_masked_rows_are_bit_exact(dev, engine):
+    """One-hot masked pushes and flush equal the batched rows on the card."""
+    from advoc_tpu_torch.infer import StreamingVocoder
+
+    chunks = _stream_chunks(3, 2)
+    kw = dict(n_streams=3, phase_engine=engine, lws_look_ahead=1, lws_sweeps=1, device=dev)
+    batched = StreamingVocoder(**kw)
+    rows = [batched.push(c) for c in chunks] + [batched.flush()]
+    for slot in (0, 2):
+        sv = StreamingVocoder(**kw)
+        onehot = np.arange(3) == slot
+        for k, c in enumerate(chunks):
+            x = np.zeros_like(c)
+            x[slot] = c[slot]
+            np.testing.assert_array_equal(sv.push(x, active=onehot)[slot], rows[k][slot])
+        np.testing.assert_array_equal(sv.flush(active=onehot)[slot], rows[-1][slot])
+
+
+def test_matmul_default_precision_on_the_card(dev):
+    """precision="default" of the matmul G-L: on the card one bf16 GEMM with
+    an fp32 result, against the CPU's fp32 products of the same rounded
+    operands (exact products, sums in another order): 1e-5 × peak. And the
+    quality gate: mel L1 within 2e-3 of "highest" at 16 iterations."""
+    x = torch.tensor(np.random.default_rng(0).standard_normal((64, 513)), dtype=torch.float32)
+    got = sp._dft_matmul(x.to(dev), sp.DEFAULT_PARAMS, "inv_re", "default")
+    assert got.dtype == torch.float32
+    want = sp._dft_matmul(x, sp.DEFAULT_PARAMS, "inv_re", "default")
+    assert _rel(got, want) < 1e-5
+    mel, mag = _mel_mag(dev, 2, 128, 513)
+    l1 = {prec: float((sp.waveform_to_r9y9_melspec(
+        sp.griffin_lim(mag, n_iters=16, momentum=0.99, precision=prec))[:, :128] - mel).abs().mean())
+        for prec in ("highest", "default")}
+    assert abs(l1["default"] - l1["highest"]) < 2e-3, l1

@@ -292,6 +292,35 @@ class TestWireFormatAcrossPackages:
             handle.stop()
 
 
+@pytest.mark.parametrize("engine", ["lws_block", "lws_online"])
+class TestVocodeServerLWS:
+    def test_roundtrip_and_exact_length(self, engine):
+        """A client's pushes and flush through an lws engine equal direct
+        one-hot masked pushes bit for bit; CONFIG tells the client the
+        engine's preroll, latency and flush, and dropping flush_samples
+        leaves exactly T·hop samples."""
+        kw = dict(phase_engine=engine, lws_look_ahead=1, lws_sweeps=1)
+        handle = start_in_thread(make_sv(2, **kw))
+        try:
+            mels = mel_chunks(3)
+            with VocodeClient(*handle.address) as c:
+                cfg = c.config
+                assert (cfg["phase_engine"], cfg["preroll_samples"], cfg["latency_frames"]) == (
+                    engine, P.n_fft // 2, 1)
+                got = [c.vocode(m) for m in mels]
+                tail = c.flush()
+                sv_ref = make_sv(2, **kw)
+                ref = ref_stream(sv_ref, c.slot, mels)
+                ref_tail = sv_ref.flush(active=np.arange(2) == c.slot)[c.slot]
+        finally:
+            handle.stop()
+        for g, r in zip(got + [tail], ref + [ref_tail]):
+            np.testing.assert_array_equal(g, r)
+        assert tail.shape == (cfg["flush_samples"],)
+        sig = np.concatenate(got + [tail])[cfg["flush_samples"] :]
+        assert sig.shape == (3 * CH * P.hop_length,)
+
+
 def _result(out: str, tag: str) -> dict:
     line = next(ln for ln in out.splitlines() if ln.startswith(tag + " "))
     return json.loads(line.split(" ", 1)[1])
@@ -339,12 +368,47 @@ class TestServerCLI:
                   "--model_overrides", tiny] + self.ARGS)
         assert r["n_clients"] == 1 and r["ticks"] >= 1
 
-    @pytest.mark.parametrize("extra", [["--train_dir", "x"], ["--engine", "lws_block"],
-                                       ["--mel_context", "2"]])
-    def test_unported_options_raise(self, extra):
+    @pytest.mark.parametrize("engine", ["lws_block", "lws_online"])
+    def test_selftest_lws_engines(self, capsys, engine):
         from advoc_tpu_torch.serve.cli import main
 
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r = main(["--selftest", "2", "--pushes", "2", "--engine", engine, "--lws_sweeps", "1",
+                  "--lws_look_ahead", "1"] + self.ARGS)
+        assert r == _result(capsys.readouterr().out, "VOCODE_SERVER_RESULT")
+        assert r["engine"] == engine and r["n_clients"] == 2 and r["p50_ms"] > 0
+
+    def test_lws_flags_reach_the_engine(self):
+        import argparse
+
+        from advoc_tpu_torch.serve.cli import add_args, build_vocoder
+
+        p = argparse.ArgumentParser()
+        add_args(p)
+        args = p.parse_args(self.ARGS)
+        assert (args.lws_sweeps, args.lws_look_ahead, args.mel_context) == (None, 2, 0)
+        sv = build_vocoder(p.parse_args(self.ARGS + ["--engine", "lws_block"]))
+        assert (sv.phase_engine, sv.lws_sweeps, sv.lws_look_ahead) == ("lws_block", 4, 2)
+        sv = build_vocoder(p.parse_args(self.ARGS + [
+            "--engine", "lws_online", "--lws_sweeps", "3", "--lws_look_ahead", "1",
+            "--mel_context", "4"]))
+        assert (sv.lws_sweeps, sv.lws_look_ahead, sv.mel_context, sv.latency_frames) == (3, 1, 4, 5)
+
+    @pytest.mark.parametrize("extra", [["--train_dir", "x"],
+                                       ["--engine", "lws_block", "--mel_context", str(CH + 1)],
+                                       ["--mel_context", "2"]])
+    def test_unported_options_raise(self, extra):
+        """--train_dir is not ported and raises so. --engine lws_* and
+        --mel_context, which raised the same way before, run now
+        (test_selftest_lws_engines): their cases hold the JAX package's
+        ValueErrors instead, a mel_context past the chunk and mel_context on
+        the gl engine."""
+        from advoc_tpu_torch.serve.cli import main
+
+        if "--train_dir" in extra:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                main(["--selftest", "1"] + self.ARGS + extra)
+            return
+        with pytest.raises(ValueError, match="mel_context"):
             main(["--selftest", "1"] + self.ARGS + extra)
 
     def test_default_device_needs_cuda(self, monkeypatch):

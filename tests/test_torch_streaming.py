@@ -305,11 +305,20 @@ class TestContracts:
         with pytest.raises(ValueError, match="does not fit"):
             sv.push(np.zeros((2, CH + 1, 80), np.float32))
 
-    @pytest.mark.parametrize("kw", [dict(phase_engine="lws_online"),
-                                    dict(phase_engine="lws_block"), dict(mel_context=2),
-                                    dict(mesh=object())])
+    @pytest.mark.parametrize("kw", [dict(phase_engine="lws_exact"),
+                                    dict(phase_engine="lws_block", mel_context=CH + 1),
+                                    dict(mel_context=2), dict(mesh=object())])
     def test_unported_options_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        """mesh is not ported and raises so. The lws engines and mel_context,
+        which raised the same way before, run now (test_torch_lws_streaming.py):
+        their cases hold the JAX package's ValueErrors instead, for an
+        unknown engine, a mel_context past the chunk, and mel_context on the
+        gl engine."""
+        if "mesh" in kw:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                self._sv(**kw)
+            return
+        with pytest.raises(ValueError, match="phase_engine|mel_context"):
             self._sv(**kw)
 
     def test_default_device_needs_cuda(self, monkeypatch):
@@ -343,13 +352,17 @@ class TestLongform:
 
     def test_first_tile_matches_jax(self, gen, mel):
         """One tile (the first push from a fresh carry) at 2 iterations, the
-        generator through the chunked stage: the waveform within the bound."""
+        generator through the chunked stage: the waveform within the bound.
+        The engine runs at the Vocoder's precision; JAX on the CPU computes
+        its DEFAULT in fp32, so the port is held at "highest" here (its
+        "default" is TestGlPrecision's)."""
         apply, params, tg = gen
         kw = dict(chunk_frames=CH, overlap_frames=4, gl_iters=2)
         m = mel[:64]
         want = JVocoder(g_apply=apply, g_params=params, params=P, **kw).vocode_longform(
             m, tile_frames=64, overlap_frames=8)
-        got = Vocoder(tg, device="cpu", **kw).vocode_longform(m, tile_frames=64, overlap_frames=8)
+        got = Vocoder(tg, device="cpu", gl_precision="highest", **kw).vocode_longform(
+            m, tile_frames=64, overlap_frames=8)
         # The first 56 frames come from the first push alone.
         n = 56 * HOP
         _close(got[:n], want[:n])
@@ -367,6 +380,47 @@ class TestLongform:
         with pytest.raises(ValueError, match="multiple"):
             Vocoder(chunk_frames=64, device="cpu").vocode_longform(
                 np.zeros((100, P.n_mels)), tile_frames=96)
+
+
+class TestGlPrecision:
+    """The gl engine's ``gl_precision``, the JAX class's keyword: None is
+    "highest" (fp32, what the tests above hold to JAX); "default" runs the
+    matmul G-L's loop with bf16 operands, JAX's single-pass DEFAULT, which
+    JAX on the CPU computes in fp32, so it is held to "highest" by mel L1
+    within 2e-3."""
+
+    def test_keyword_reaches_griffin_lim(self, mel, monkeypatch):
+        seen = []
+        real = tsp.griffin_lim
+        monkeypatch.setattr(tsp, "griffin_lim",
+                            lambda *a, **kw: seen.append(kw["precision"]) or real(*a, **kw))
+        kw = dict(chunk_frames=CH, overlap_frames=OV, gl_iters=2, device="cpu")
+        for value, want in ((None, "highest"), ("highest", "highest"), ("default", "default")):
+            sv = StreamingVocoder(gl_precision=value, **kw)
+            assert sv.gl_precision == want
+            sv.push(_chunks(mel, 1)[0])
+            assert seen[-1] == want
+        with pytest.raises(ValueError, match="gl_precision"):
+            StreamingVocoder(gl_precision="bf16", **kw)
+
+    @pytest.mark.parametrize("value,want", [(None, "default"), ("highest", "highest")])
+    def test_longform_engine_carries_the_vocoders(self, mel, value, want):
+        """vocode_longform builds its engine at the Vocoder's own precision
+        (None is "default" for the Vocoder), as the JAX package's does."""
+        tv = Vocoder(chunk_frames=64, gl_iters=2, gl_precision=value, device="cpu")
+        tv.vocode_longform(mel[:128], tile_frames=128)
+        assert tv.gl_precision == want and tv._longform[(128, 32)].gl_precision == want
+
+    def test_default_within_2e_3_mel_l1_of_highest(self, mel):
+        """Four chunks and a flush at 16 iterations, at each precision."""
+        c = _chunks(mel, 4)
+        l1 = {}
+        for prec in ("highest", "default"):
+            sv = StreamingVocoder(chunk_frames=CH, overlap_frames=OV, gl_iters=16,
+                                  gl_precision=prec, device="cpu")
+            sig = np.concatenate([sv.push(x) for x in c] + [sv.flush()])[sv.flush_samples :]
+            l1[prec] = _mel_l1(sig, c.reshape(-1, P.n_mels))
+        assert abs(l1["default"] - l1["highest"]) < 2e-3, l1
 
 
 class TestSpectralPieces:
