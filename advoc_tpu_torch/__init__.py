@@ -5,6 +5,7 @@ heuristic estimate, the U-Net repair, the mel-consistency projection and
 fast Griffin-Lim through a hand-written CUDA kernel. The streaming engine
 (:class:`advoc_tpu_torch.infer.StreamingVocoder`) serves many streams per
 push behind a TCP server (``python -m advoc_tpu_torch.serve``); the offline
-CLI is ``python -m advoc_tpu_torch.infer.vocode_cli``. The package imports
-torch, numpy and scipy only, never JAX or ``advoc_tpu``.
+CLI is ``python -m advoc_tpu_torch.infer.vocode_cli``. The advoc GAN trains
+with ``python -m advoc_tpu_torch.models.advoc.train_evaluate``. The package
+imports torch, numpy and scipy only, never JAX or ``advoc_tpu``.
 """

@@ -1,7 +1,9 @@
-"""Audio I/O on the stdlib ``wave`` module and numpy: decode WAV to float32
-mono, resample, save float samples as 16-bit WAV.
+"""Audio I/O on the stdlib ``wave`` module and numpy: decode WAV (whole or a
+slice) to float32 mono, read a header's length and rate, resample, save
+float samples as 16-bit WAV.
 
-The port's copy of ``advoc_tpu.data.audioio`` without its native parser.
+The port's copy of ``advoc_tpu.data.audioio`` without its native parser
+(ROADMAP.md queue A): the same samples, ``k / 32768`` for PCM16.
 :func:`save_as_wav` writes the same bytes as the JAX package's (its native
 writer and its fallback alike): the 44-byte PCM header and
 ``round(clip(x, -1, 1) · 32767)`` samples, the convention of the streaming
@@ -17,12 +19,16 @@ from math import gcd
 import numpy as np
 
 
-def _decode(path: str) -> tuple[np.ndarray, int]:
+def _decode(path: str, start: int = 0, count: int | None = None) -> tuple[np.ndarray, int]:
+    """Frames [start, start + count) (all from ``start`` when count is None)."""
     with wave.open(path, "rb") as w:
         sr = w.getframerate()
         ch = w.getnchannels()
         width = w.getsampwidth()
-        raw = w.readframes(w.getnframes())
+        n = w.getnframes()
+        start = min(start, n)
+        w.setpos(start)
+        raw = w.readframes(n - start if count is None else min(count, n - start))
     if width == 2:
         x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
     elif width == 4:
@@ -54,12 +60,27 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
 def decode_audio(path: str | pathlib.Path, target_sample_rate: int | None = None) -> np.ndarray:
     """Decode a WAV file to mono float32 in [-1, 1], resampled to
-    ``target_sample_rate`` if given. (The JAX function's ``normalize``, a
-    training-loader option, comes with the loader: ROADMAP.md queue A.)"""
+    ``target_sample_rate`` if given. (The JAX function's ``normalize`` is
+    an option of the port's loader, ``decode_extract_and_batch``.)"""
     x, sr = _decode(str(path))
     if target_sample_rate is not None and sr != target_sample_rate:
         x = resample(x, sr, target_sample_rate)
     return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def decode_audio_slice(path: str | pathlib.Path, start: int, count: int) -> np.ndarray:
+    """Frames [start, start + count) as float32 mono, zero-padded past the
+    end of the file; only those frames are read."""
+    x, _ = _decode(str(path), start, count)
+    out = np.zeros(count, dtype=np.float32)
+    out[: len(x)] = x
+    return out
+
+
+def wav_num_frames(path: str | pathlib.Path) -> tuple[int, int]:
+    """(n_frames, sample_rate) from the header, without decoding samples."""
+    with wave.open(str(path), "rb") as w:
+        return w.getnframes(), w.getframerate()
 
 
 def save_as_wav(x, path: str | pathlib.Path, sample_rate: int = 22050) -> None:

@@ -7,9 +7,10 @@ Input: a .npy of (T, 80) or (B, T, 80) r9y9-normalized mels (a TTS
 frontend's output), or a wav or a directory of wavs to re-vocode
 (featurized on the device by the STFT path). Loads a port inference bundle
 (``scripts/bundle_to_torch.py`` converts a JAX one); without one it runs
-the heuristic pipeline. Runs on the card unless ``--device cpu``. The
-port's copy of ``advoc_tpu.infer.vocode_cli``; the AOT options (``--aot``,
-``--aot_export``) and ``--train_dir`` are not ported yet and raise.
+the heuristic pipeline; ``--train_dir`` takes the generator of a training
+run's latest checkpoint instead. Runs on the card unless ``--device cpu``.
+The port's copy of ``advoc_tpu.infer.vocode_cli``; the AOT options
+(``--aot``, ``--aot_export``) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def main(argv=None) -> dict:
     p.add_argument("--out_dir", required=True)
     p.add_argument("--bundle", default=None, help="port inference bundle dir")
     p.add_argument("--train_dir", default=None,
-                   help="training checkpoints: not ported yet, raises")
+                   help="a training run: its latest checkpoint's generator (alternative "
+                        "to --bundle)")
     p.add_argument("--aot", default=None, help="not ported yet (ROADMAP.md), raises")
     p.add_argument("--aot_export", default=None, help="not ported yet (ROADMAP.md), raises")
     p.add_argument("--aot_allow_custom_calls", action="store_true",
@@ -40,9 +42,11 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     p.add_argument("--model_size", choices=["full", "small"], default=None,
-                   help="default: the bundle config's model_size, else full")
+                   help="default: the bundle config's model_size (a training run's "
+                        "recorded config), else full")
     p.add_argument("--model_overrides", default=None,
-                   help="default: the bundle config's overrides")
+                   help="default: the bundle config's overrides (a training run's "
+                        "recorded config)")
     p.add_argument("--gl_iters", type=int, default=30)
     p.add_argument("--mel_projection", type=float, default=None,
                    help="post-repair mel-consistency projection strength; "
@@ -60,22 +64,26 @@ def main(argv=None) -> dict:
     if args.aot or args.aot_export or args.aot_allow_custom_calls:
         raise NotImplementedError(
             "AOT artifacts are not ported yet (ROADMAP.md queue A, the export analog)")
-    if args.train_dir:
-        raise NotImplementedError(
-            "--train_dir reads training checkpoints, which are not ported yet "
-            "(ROADMAP.md); pass --bundle")
-
     from advoc_tpu_torch.data import audioio
     from advoc_tpu_torch.infer import Vocoder
     from advoc_tpu_torch.ops import spectral
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
-    from advoc_tpu_torch.train.checkpoint import generator_config, load_generator
+    from advoc_tpu_torch.train.checkpoint import (
+        generator_config,
+        load_generator,
+        load_train_generator,
+    )
 
     generator = None
     if args.bundle:
         generator, conf = load_generator(args.bundle, args.model_size, args.model_overrides)
         cfg = generator.cfg
         print(f"[vocode] loaded bundle {args.bundle} (config {conf})", flush=True)
+    elif args.train_dir:
+        generator, step = load_train_generator(args.train_dir, args.model_size,
+                                               args.model_overrides)
+        cfg = generator.cfg
+        print(f"[vocode] loaded checkpoint step {step} from {args.train_dir}", flush=True)
     else:
         cfg = generator_config({}, args.model_size, args.model_overrides)
         print("[vocode] no model given — heuristic pipeline", flush=True)

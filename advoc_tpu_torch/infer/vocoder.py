@@ -108,10 +108,11 @@ class Vocoder:
     utterance, so no length is excluded) and the matmul scan otherwise;
     "kernel" always takes the kernel function (its plain version on the
     CPU); "xla" always takes the matmul scan. ``gl_precision`` is the
-    kernel form's mode: None or "default" is JAX's default split_synth (the
-    tensor-core kernel on the card), "highest" fp32 throughout; the matmul
-    scan is fp32 either way, and ``vocode_longform``'s engine takes it as
-    its matmul form's precision, as in the JAX package. ``phase_init``
+    G-L's precision, as in the JAX Vocoder: None or "default" is JAX's
+    default, "highest" fp32 throughout. The kernel form's default is
+    split_synth (the tensor-core kernel on the card); the matmul scan's
+    (``phase_impl="xla"``, and ``vocode_longform``'s engine) is bf16
+    operands with fp32 accumulation, JAX's single-pass DEFAULT. ``phase_init``
     "pghi" starts G-L (either form) from
     :func:`~advoc_tpu_torch.ops.spectral.pghi_init_phase` with
     ``pghi_coef``, "zero" from zero phase.
@@ -204,7 +205,7 @@ class Vocoder:
             )
         return spectral.griffin_lim(
             mag, length, n_iters=self.gl_iters, momentum=self.momentum, params=p,
-            init_phase=init,
+            precision=self.gl_precision, init_phase=init,
         )
 
     def __call__(self, mel) -> Tensor:

@@ -24,6 +24,9 @@ onto torch as follows (checked by ``tests/test_torch_model.py``):
 ``AdvocConfig(fast_head=True)`` (and :func:`small_config`, the streaming
 generator) stops the decoder one level early and predicts the residual at
 half resolution, as the JAX package does; ``packed_tail`` is then ignored.
+
+:class:`PatchDiscriminator` is the JAX package's PatchGAN over (condition,
+magnitude) pairs, the adversary of training (:mod:`advoc_tpu_torch.train.gan`).
 """
 
 from __future__ import annotations
@@ -101,6 +104,47 @@ def _conv(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> Tensor:
                     stride=conv.stride, padding=conv.padding, **kw)
 
 
+def _flax_init(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's initializers on every layer of ``module``: lecun_normal kernels
+    (truncated normal at ±2σ, σ = 1/√fan_in / 0.8796), zero biases,
+    GroupNorm scale 1, bias 0. fan_in = kh·kw·cin, for the transposed
+    convs too, as in flax."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                kh, kw = m.kernel_size
+                std = 1.0 / math.sqrt(kh * kw * m.in_channels) / 0.87962566103423978
+                # Drawn on the generator's device and copied: the same weights
+                # wherever the module lives.
+                w = torch.empty(m.weight.shape, device=generator.device)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+                m.weight.copy_(w)
+                m.bias.zero_()
+            elif isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """flax ``padding="SAME"`` on an axis of ``n``: out = ⌈n / s⌉, the total
+    padding split with the extra pixel after (k4/s2 on an even n: (1, 1);
+    k4/s1: (1, 2))."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _conv_same(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
+    """flax ``Conv(padding="SAME", dtype=...)`` of an NCHW ``x``: padded
+    inside the convolution where the padding is symmetric, else by ``F.pad``
+    first."""
+    (k, _), (s, _) = conv.kernel_size, conv.stride
+    (t0, t1), (w0, w1) = _same_pads(x.shape[2], k, s), _same_pads(x.shape[3], k, s)
+    if t0 != t1 or w0 != w1:
+        x, t0, w0 = F.pad(x, (w0, w1, t0, t1)), 0, 0
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    stride=conv.stride, padding=(t0, w0))
+
+
 class _Down(nn.Module):
     """Stride-2 k4 conv → GroupNorm (not at level 0) → LeakyReLU(0.2)."""
 
@@ -170,6 +214,13 @@ class _PackedTailUp(nn.Module):
         # The converter flips the flax kernel; B4 takes flax's (4, 4, cin, f).
         wt = self.conv.weight.flip(2, 3).permute(2, 3, 0, 1)
         if self.dtype == torch.bfloat16 and x.is_cuda:
+            # B4 has no backward (nor has the Pallas kernel, which has no
+            # custom_vjp): a gradient would silently stop here.
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or any(p.requires_grad for p in self.parameters())):
+                raise NotImplementedError(
+                    "packed_tail on a CUDA device runs kernel B4, which has no backward: "
+                    "train with packed_tail=False (the same parameters) or under no_grad")
             tm = next(t for t in (16, 8, 4, 2, 1) if h % t == 0 and (h // 2) % t == 0)
             y, s1, s2 = packed_up_kernel(x.to(self.dtype).contiguous(), wt, self.conv.bias,
                                          f=f, tm=tm, with_stats=True)
@@ -184,7 +235,8 @@ class _PackedTailUp(nn.Module):
         inv = torch.rsqrt(var + 1e-6)
         scale = (inv @ onehot.T) * self.norm.weight.repeat(2)  # (B, 2f)
         shift = self.norm.bias.repeat(2) - (mean @ onehot.T) * scale
-        yf = y.to(torch.float32).mul_(scale[:, None, None]).add_(shift[:, None, None])
+        # Out of place: y (and Σy, Σy² from it) stays as autograd saved it.
+        yf = torch.addcmul(shift[:, None, None], y.to(torch.float32), scale[:, None, None])
         return F.relu(yf.to(self.dtype))
 
 
@@ -237,21 +289,8 @@ class AdvocGenerator(nn.Module):
         self.head = nn.Conv2d(x_ch, p, k, padding=k // 2)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's initializers: lecun_normal kernels (truncated normal at ±2σ,
-        σ = 1/√fan_in / 0.8796), zero biases, GroupNorm scale 1, bias 0.
-        fan_in = kh·kw·cin, for the transposed convs too, as in flax."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                    kh, kw = m.kernel_size
-                    cin = m.in_channels
-                    std = 1.0 / math.sqrt(kh * kw * cin) / 0.87962566103423978
-                    nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                          generator=generator)
-                    m.bias.zero_()
-                elif isinstance(m, GroupNorm):
-                    m.weight.fill_(1.0)
-                    m.bias.zero_()
+        """flax's initializers (:func:`_flax_init`)."""
+        _flax_init(self, generator)
 
     def forward(self, est: Tensor, truncate_after: str | None = None) -> Tensor:
         if truncate_after is not None:
@@ -302,7 +341,11 @@ class AdvocGenerator(nn.Module):
         else:
             delta = _conv(x, self.head, dt).to(torch.float32)  # (B, p, T, W)
             delta = delta.permute(0, 2, 3, 1).reshape(b, t, n_bins)
-        repaired = torch.clamp(body + delta, 0.0, 1.0)
+        # jnp.clip's gradient, half at a tie (torch.clamp passes all of it):
+        # body + delta is exactly 0 where the estimate is at the dB floor and
+        # the head's output is its zero bias (at initialization, in quiet bins).
+        x = body + delta
+        repaired = torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
         return torch.cat([repaired, nyquist], dim=-1)
 
 
@@ -315,7 +358,61 @@ def small_config(**overrides) -> AdvocConfig:
 
 
 class PatchDiscriminator(nn.Module):
-    """Not ported yet: training is ROADMAP.md queue A7."""
+    """PatchGAN over (condition, magnitude) pairs, the JAX package's.
+
+    ``condition`` (B, T, n_freq), or (B, T, n_mels) under
+    ``condition_on="mel"``, resampled linearly onto the n_freq axis, and
+    ``mag`` (B, T, n_freq), both normalized dB in [0, 1]. Returns the patch
+    logits in flax's layout, (B, T / 2^(L−1), W / 2^(L−1), 1) with
+    W = (n_freq − 1) / freq_pack.
+
+    ``stack([cond, mag]) · 2 − 1`` without the Nyquist bin, its bins packed
+    into channels as in flax (channel k·2 + c of packed column w holds bin
+    w·p + k of input c, cond first), then ``disc_layers`` k4 convs of
+    width min(disc_width·2^i, 8·disc_width), stride 2 but the last (1), each
+    followed by GroupNorm (i > 0, in the compute dtype) and LeakyReLU(0.2);
+    then a float32 k4/s1 logit conv. Every conv pads as flax's "SAME".
+    """
 
     def __init__(self, cfg: AdvocConfig = AdvocConfig()):
-        raise NotImplementedError("PatchDiscriminator is not ported yet (ROADMAP.md queue A)")
+        super().__init__()
+        p = cfg.freq_pack
+        if (cfg.n_freq - 1) % p:
+            raise ValueError(f"freq_pack {p} must divide n_freq − 1 = {cfg.n_freq - 1}")
+        self.cfg = cfg
+        self.convs = nn.ModuleList()
+        self.norms = nn.ModuleDict()  # keyed by layer, as flax's norm{i}
+        cin = 2 * p
+        for i in range(cfg.disc_layers):
+            f = min(cfg.disc_width * 2**i, cfg.disc_width * 8)
+            stride = 2 if i < cfg.disc_layers - 1 else 1
+            self.convs.append(nn.Conv2d(cin, f, 4, stride=stride))
+            if i > 0:
+                self.norms[str(i)] = GroupNorm(cfg.norm_groups, f, cfg.compute_dtype)
+            cin = f
+        self.logit = nn.Conv2d(cin, 1, 4)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initializers (:func:`_flax_init`)."""
+        _flax_init(self, generator)
+
+    def forward(self, condition: Tensor, mag: Tensor) -> Tensor:
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        if condition.shape[-1] != mag.shape[-1]:
+            # jax.image.resize(method="linear") when upsampling: half-pixel
+            # centres, the edge samples take the edge bins (its weights
+            # renormalized there), as F.interpolate's clamped source index.
+            condition = F.interpolate(condition, size=mag.shape[-1], mode="linear",
+                                      align_corners=False)
+        b, t = mag.shape[:2]
+        p, n_bins = cfg.freq_pack, cfg.n_freq - 1
+        x = torch.stack([condition, mag], dim=-1)[..., :n_bins, :] * 2.0 - 1.0
+        x = x.to(dt).reshape(b, t, n_bins // p, 2 * p).permute(0, 3, 1, 2)
+        for i, conv in enumerate(self.convs):
+            x = _conv_same(x, conv, dt)
+            if i > 0:
+                x = self.norms[str(i)](x)
+            x = F.leaky_relu(x, 0.2)
+        logits = _conv_same(x.to(torch.float32), self.logit, torch.float32)
+        return logits.permute(0, 2, 3, 1)

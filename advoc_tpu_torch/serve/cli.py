@@ -2,8 +2,9 @@
 
     python -m advoc_tpu_torch.serve --port 9700 --bundle runs/advoc/bundle_torch
 
-serves a StreamingVocoder (a port bundle's generator, or the heuristic
-pipeline without one) on the card; ``--device cpu`` runs it on the CPU.
+serves a StreamingVocoder (a port bundle's generator, a training run's
+latest checkpoint with ``--train_dir``, or the heuristic pipeline without
+either) on the card; ``--device cpu`` runs it on the CPU.
 ``--selftest N`` instead starts the server, drives it with N concurrent
 in-process clients through the TCP path, prints latency and batching stats
 as one JSON line (``VOCODE_SERVER_RESULT {...}``) and exits; with
@@ -28,16 +29,15 @@ def build_vocoder(args):
     from advoc_tpu_torch.infer.vocoder import StreamingVocoder
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
 
-    if args.train_dir:
-        raise NotImplementedError(
-            "--train_dir reads training checkpoints, which are not ported yet "
-            "(ROADMAP.md); serve a bundle (--bundle)")
+    from advoc_tpu_torch.train.checkpoint import load_generator, load_train_generator
+
     generator = None
     if args.bundle:
-        from advoc_tpu_torch.train.checkpoint import load_generator
-
         generator, _ = load_generator(args.bundle, args.model_size, args.model_overrides,
                                       default_size="small")
+    elif args.train_dir:
+        generator, _ = load_train_generator(args.train_dir, args.model_size,
+                                            args.model_overrides, default_size="small")
     return StreamingVocoder(
         generator, params=P, chunk_frames=args.chunk_frames, n_streams=args.n_slots,
         gl_iters=args.gl_iters, phase_engine=args.engine,
@@ -65,11 +65,13 @@ def add_args(p: argparse.ArgumentParser) -> None:
                    help="port inference bundle dir (scripts/bundle_to_torch.py "
                         "converts a JAX bundle)")
     p.add_argument("--train_dir", default=None,
-                   help="training checkpoints: not ported yet, raises")
+                   help="a training run: its latest checkpoint's generator")
     p.add_argument("--model_size", choices=["full", "small"], default=None,
-                   help="default: the bundle config's model_size, else small")
+                   help="default: the bundle config's model_size (a training run's "
+                        "recorded config), else small")
     p.add_argument("--model_overrides", default=None,
-                   help="default: the bundle config's overrides")
+                   help="default: the bundle config's overrides (a training run's "
+                        "recorded config)")
     p.add_argument("--engine", choices=["gl", "lws_online", "lws_block"], default="gl",
                    help="phase engine: G-L with a crossfade, or streaming LWS")
     p.add_argument("--chunk_frames", type=int, default=64)

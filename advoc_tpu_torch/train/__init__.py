@@ -1,5 +1,11 @@
-"""Training-side modules of the port; so far the inference bundles."""
+"""Training of the port: the advoc GAN step (:mod:`.gan`), checkpoints and
+inference bundles (:mod:`.checkpoint`), summaries (:mod:`.metrics`) and the
+train and eval loops (:mod:`.harness`)."""
 
-from advoc_tpu_torch.train.checkpoint import export_inference_bundle, load_inference_bundle
+from advoc_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    export_inference_bundle,
+    load_inference_bundle,
+)
 
-__all__ = ["export_inference_bundle", "load_inference_bundle"]
+__all__ = ["CheckpointManager", "export_inference_bundle", "load_inference_bundle"]

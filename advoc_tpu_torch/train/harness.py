@@ -1,0 +1,194 @@
+"""The GAN training and evaluation loops.
+
+The port of ``advoc_tpu.train.harness``: checkpoints every N steps and
+resume from the latest, TensorBoard summaries, periodic step logs, a stop
+at ``max_steps``, and two guards that end a diverged run loudly after
+saving it. ``step_fn(gstate, dstate, batch, generator)`` is a step of
+:mod:`advoc_tpu_torch.train.gan`; the loop owns its ``torch.Generator``,
+seeded from ``seed`` on the states' device, where the JAX loop splits a
+``PRNGKey``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import time
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from advoc_tpu_torch.train import metrics as metrics_lib
+from advoc_tpu_torch.train.checkpoint import CheckpointManager
+
+
+def check_run_config(train_dir: str, config: dict) -> None:
+    """Record ``config`` as ``train_dir/config.json``; on resume, raise a
+    clear error if it differs from the recorded one. Keys are compared on
+    the intersection, so a new config field keeps old runs resumable."""
+    path = pathlib.Path(train_dir) / "config.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        recorded = json.loads(path.read_text())
+        diff = {k: (recorded[k], config[k]) for k in recorded.keys() & config.keys()
+                if recorded[k] != config[k]}
+        if diff:
+            raise ValueError(
+                f"run config mismatch in {train_dir}: this run was trained with different "
+                f"model hyperparameters (recorded → current): {diff}. Pass matching "
+                f"--model_overrides to resume it, or use a fresh train_dir."
+            )
+    else:
+        path.write_text(json.dumps(config, indent=2, sort_keys=True))
+
+
+def _save_and_raise(mgr: CheckpointManager, step: int, state: dict, msg: str):
+    mgr.save(step, state, wait=True)
+    mgr.close()
+    raise FloatingPointError(msg)
+
+
+def train_loop(
+    step_fn: Callable,
+    gstate,
+    dstate,
+    data_it: Iterator,
+    train_dir: str,
+    max_steps: int = 100000,
+    ckpt_every: int = 1000,
+    log_every: int = 50,
+    summary_every: int = 100,
+    seed: int = 0,
+    nan_check_every: int = 200,
+    explode_ratio: float = 50.0,
+    config: dict | None = None,
+):
+    """Run the alternating-GAN loop; returns (gstate, dstate, final_step).
+
+    Resumes from the latest checkpoint in ``train_dir``. ``config`` is
+    recorded as ``train_dir/config.json`` and checked on resume
+    (:func:`check_run_config`).
+
+    NaN guard: every ``nan_check_every`` steps the metrics are read back;
+    on a non-finite value the loop saves a checkpoint at that step and
+    raises ``FloatingPointError``. Explosion guard, at the same cadence:
+    each ``*loss*`` metric is tracked with an EMA of its magnitude, and a
+    value above ``explode_ratio`` × max(EMA, 1) saves and raises the same
+    way (the first check only seeds the EMA). 0 disables either guard.
+    """
+    if config is not None:
+        check_run_config(train_dir, config)
+    mgr = CheckpointManager(train_dir, max_to_keep=5)
+    bundle, start = mgr.restore_or_init({"g": gstate, "d": dstate})
+    gstate, dstate = bundle["g"], bundle["d"]
+    if start:
+        print(f"[train] resumed from step {start} in {train_dir}", flush=True)
+
+    writer = metrics_lib.SummaryWriter(f"{train_dir}/tb")
+    generator = torch.Generator(device=gstate.device).manual_seed(seed)
+    step = steps_at_last = start
+    t_last = time.perf_counter()
+    loss_emas: dict[str, float] = {}
+    for batch in data_it:
+        if step >= max_steps:
+            break
+        gstate, dstate, m = step_fn(gstate, dstate, batch, generator)
+        step += 1
+
+        if nan_check_every and step % nan_check_every == 0:
+            host = metrics_lib.to_host(m)
+            bad = {k: v for k, v in host.items() if not np.isfinite(v)}
+            if bad:
+                _save_and_raise(mgr, step, {"g": gstate, "d": dstate},
+                                f"non-finite training metrics at step {step}: {bad} "
+                                f"(diverged checkpoint saved to {train_dir})")
+            blown = {}
+            for k, v in host.items() if explode_ratio else ():
+                if "loss" not in k:
+                    continue
+                ema = loss_emas.get(k)
+                if ema is not None and abs(v) > explode_ratio * max(ema, 1.0):
+                    blown[k] = (v, ema)
+                loss_emas[k] = abs(v) if ema is None else 0.9 * ema + 0.1 * abs(v)
+            if blown:
+                detail = ", ".join(f"{k}={v:.4g} (EMA {e:.4g})" for k, (v, e) in blown.items())
+                _save_and_raise(mgr, step, {"g": gstate, "d": dstate},
+                                f"training explosion at step {step}: {detail} exceeded "
+                                f"{explode_ratio}× max(EMA, 1) while still finite, which the "
+                                f"NaN guard cannot see. Diverged checkpoint saved to "
+                                f"{train_dir}; resume from the last healthy periodic checkpoint.")
+
+        if step % log_every == 0:
+            host = metrics_lib.to_host(m)  # waits for the device: the rate is honest
+            dt = time.perf_counter() - t_last
+            rate = (step - steps_at_last) / max(dt, 1e-9)
+            t_last, steps_at_last = time.perf_counter(), step
+            msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(host.items()))
+            print(f"[train] step {step} ({rate:.2f} steps/s) {msg}", flush=True)
+        if step % summary_every == 0:
+            writer.scalars(step, metrics_lib.to_host(m))
+        if step % ckpt_every == 0:
+            mgr.save(step, {"g": gstate, "d": dstate})
+            print(f"[train] checkpoint @ {step}", flush=True)
+
+    if step > start and step % ckpt_every != 0:
+        mgr.save(step, {"g": gstate, "d": dstate})
+    mgr.close()  # waits for an in-flight save
+    writer.close()
+    close = getattr(data_it, "close", None)
+    if close is not None:  # release the loader's producer thread promptly
+        close()
+    return gstate, dstate, step
+
+
+def eval_loop(
+    eval_fn: Callable,
+    make_states: Callable,
+    data_fn: Callable[[], Iterator],
+    train_dir: str,
+    once: bool = False,
+    timeout_s: float = 3600.0,
+    audio_fn: Callable | None = None,
+    image_fn: Callable | None = None,
+):
+    """Poll ``train_dir`` for new checkpoints and evaluate each.
+
+    ``eval_fn(generator, batch)`` → metric dict, averaged over the pass
+    from ``data_fn()`` and written to ``train_dir/tb_eval``;
+    ``audio_fn(generator)`` returns (tag, waveform, sample_rate) tuples and
+    ``image_fn(generator)`` (tag, H×W image in [0, 1]) tuples to summarize.
+    Returns the last step evaluated, or None.
+    """
+    mgr = CheckpointManager(train_dir)
+    writer = metrics_lib.SummaryWriter(f"{train_dir}/tb_eval")
+    gstate, dstate = make_states()
+    template = {"g": gstate, "d": dstate}
+
+    seen = None
+    for step in mgr.poll(last_seen=None, interval_s=5.0, timeout_s=0.0 if once else timeout_s):
+        seen = step
+        bundle = mgr.restore(step, template=template)
+        generator = bundle["g"].model
+        sums: dict[str, float] = {}
+        n = 0
+        for batch in data_fn():
+            for k, v in metrics_lib.to_host(eval_fn(generator, batch)).items():
+                sums[k] = sums.get(k, 0.0) + v
+            n += 1
+        means = {k: v / max(n, 1) for k, v in sums.items()}
+        writer.scalars(step, means)
+        msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items()))
+        print(f"[eval] ckpt {step}: {msg}", flush=True)
+        for tag, wav, sr in audio_fn(generator) if audio_fn is not None else ():
+            writer.audio(step, tag, np.asarray(wav), sr)
+        for tag, img in image_fn(generator) if image_fn is not None else ():
+            writer.image(step, tag, np.asarray(img))
+        if once:
+            break
+    if seen is None:
+        print(f"[eval] no checkpoint appeared in {train_dir} within {timeout_s:.0f}s — "
+              "evaluated NOTHING", flush=True)
+    mgr.close()
+    writer.close()
+    return seen

@@ -1,5 +1,5 @@
 """Utilities of the port."""
 
-from advoc_tpu_torch.utils.config import apply_overrides
+from advoc_tpu_torch.utils.config import apply_overrides, ensure_dataset, find_wavs
 
-__all__ = ["apply_overrides"]
+__all__ = ["apply_overrides", "ensure_dataset", "find_wavs"]

@@ -1,12 +1,15 @@
-"""Config plumbing: the ``--model_overrides`` flag on a frozen dataclass.
+"""Config plumbing: the ``--model_overrides`` flag on a frozen dataclass,
+and the data directory of the training CLI.
 
-The port's copy of ``advoc_tpu.utils.config.apply_overrides``. The JAX
-module's ``enable_compilation_cache`` is XLA's and has no counterpart here.
+The port's copy of ``advoc_tpu.utils.config`` (``apply_overrides``,
+``find_wavs``, ``ensure_dataset``). The JAX module's
+``enable_compilation_cache`` is XLA's and has no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 from typing import TypeVar
 
 T = TypeVar("T")
@@ -42,3 +45,42 @@ def apply_overrides(cfg: T, overrides: str | None) -> T:
         else:
             updates[key] = val.strip()
     return dataclasses.replace(cfg, **updates)
+
+
+def find_wavs(data_dir: str | None) -> list[str]:
+    """The .wav files under ``data_dir`` (recursively), sorted; or the paths
+    listed one per line in ``data_dir`` when it is a ``*.txt`` file (the
+    output of scripts/prepare_dataset.py)."""
+    if data_dir is None:
+        return []
+    root = pathlib.Path(data_dir)
+    if not root.exists():
+        return []
+    if root.is_file() and root.suffix == ".txt":
+        return [ln.strip() for ln in root.read_text().splitlines() if ln.strip()]
+    return sorted(str(p) for p in root.rglob("*.wav"))
+
+
+def ensure_dataset(data_dir: str | None, tmp_dir: str, n_files: int = 8,
+                   seconds: float = 4.0, sample_rate: int = 22050) -> list[str]:
+    """The wavs of ``data_dir``; where it has none, a synthetic fixture set
+    (``synthetic_speech`` of seeds 0..n_files−1, written to ``tmp_dir``), so
+    every CLI runs end to end without a dataset."""
+    fps = find_wavs(data_dir)
+    if fps:
+        return fps
+    from advoc_tpu_torch.data import audioio
+    from advoc_tpu_torch.data.synthetic import synthetic_speech
+
+    out = pathlib.Path(tmp_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    fps = []
+    for i in range(n_files):
+        p = out / f"synthetic_{i}.wav"
+        if not p.exists():
+            audioio.save_as_wav(synthetic_speech(i, int(seconds * sample_rate), sample_rate),
+                                p, sample_rate)
+        fps.append(str(p))
+    print(f"[data] no wavs in {data_dir!r}; using {n_files} synthetic fixtures in {tmp_dir}",
+          flush=True)
+    return fps

@@ -37,6 +37,16 @@ after:
   ``lws_online_push`` the same in chunks of 64 and of 16, mel L1 within 10%
   of the CPU port's), one ``mel_context=32`` stream; and the TCP server
   on ``--engine lws_block``.
+* training (:func:`training`, phase (i)), where no port kernel runs in the
+  step: ``train_evaluate --mode train`` at ``AdvocConfig()``, batch 8, on
+  8 synthetic wavs with the corpus on the card (``--data_placement hbm``)
+  and streamed (``wire``, a child run killed after its first checkpoint
+  and resumed), every G and D tensor updated and every logged metric
+  finite; the card's first step against the CPU port's on the same
+  weights; g_l1 falling over 10 steps at lr 2e-3; the step's split by
+  CUDA events, peak memory and a device trace; ``eval --eval_once`` and
+  ``infer`` on the run (the tensor-core G-L kernel); the packed tail
+  refusing gradients on the card.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -559,6 +569,235 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     return out
 
 
+def training(dev, mel_l1, zero_counts, counts) -> dict:
+    """Phase (i): advoc GAN training at full width (``AdvocConfig()``,
+    batch 8) on 8 synthetic 4-second wavs in a temporary directory, through
+    the train_evaluate CLI and the step it builds. Returns the numbers it
+    printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        return _training(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
+
+
+def _training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
+    import contextlib
+    import io
+    import math
+    import re
+
+    from advoc_tpu_torch.data import audioio
+    from advoc_tpu_torch.data.synthetic import synthetic_speech
+    from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator, PatchDiscriminator
+    from advoc_tpu_torch.models.advoc import train_evaluate as cli
+    from advoc_tpu_torch.ops import spectral as sp
+    from advoc_tpu_torch.train import gan
+    from advoc_tpu_torch.train.checkpoint import CheckpointManager
+    from advoc_tpu_torch.utils import ensure_dataset
+
+    t_start = time.perf_counter()
+    out: dict = {}
+    cfg = AdvocConfig()
+    data = tmp / "wavs"
+    ensure_dataset(None, str(data))  # synthetic_speech seeds 0-7, 4 s each
+    common = ["--data_dir", str(data), "--batch_size", "8", "--device", "cuda"]
+    zeros = {name: 0 for name in counts()}
+
+    def run_cli(args: list[str]):
+        """cli.main(args), its log echoed; (result, the [train] rows as
+        (step, steps/s, metrics)), every logged metric finite."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(args)
+        text = buf.getvalue()
+        print(text, end="")
+        rows = []
+        for step, rate, msg in re.findall(r"\[train\] step (\d+) \(([\d.]+) steps/s\) (.*)", text):
+            m = {k: float(v) for k, v in (kv.split("=") for kv in msg.split())}
+            require(all(math.isfinite(v) for v in m.values()), f"train step {step} metrics {m}")
+            rows.append((int(step), float(rate), m))
+        return res, text, rows
+
+    def changed_and_finite(state, init: dict, what: str) -> None:
+        for name, p in state.model.named_parameters():
+            require(bool(torch.isfinite(p).all()), f"{what} {name} finite")
+            require(not torch.equal(p.detach().cpu(), init[name]), f"{what} {name} was updated")
+
+    # -- (i-a) CLI train, the corpus staged on the card ---------------------------
+    g0, d0, _, _ = cli._models_and_states(cfg, 0, dev)  # the CLI's initialization
+    init = {k: {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+            for k, m in (("g", g0), ("d", d0))}
+    del g0, d0
+    run = tmp / "hbm"
+    zero_counts()
+    (gs, ds, step), text, rows = run_cli(["--mode", "train", "--train_dir", str(run),
+                                          "--data_placement", "hbm", "--max_steps", "24",
+                                          "--ckpt_every", "24", "--log_every", "8", *common])
+    torch.cuda.synchronize()
+    require(counts() == zeros, f"the train step runs no port kernel: {counts()}")
+    require(step == 24 and gs.step == ds.step == 24 and "staged in device memory" in text,
+            f"hbm run ended at step {step}")
+    changed_and_finite(gs, init["g"], "G")
+    changed_and_finite(ds, init["d"], "D")
+    out["hbm_steps_per_s"] = [r for _, r, _ in rows[1:]]
+    print(f"(i) train --data_placement hbm, 24 steps at AdvocConfig() batch 8: every G and D "
+          f"tensor updated and finite; steps/s after the first window {out['hbm_steps_per_s']}")
+    del gs, ds
+
+    # -- (i-b) kill a wire run after its first checkpoint, resume it ------------
+    run_w = tmp / "wire"
+    log_w = tmp / "wire_child.log"
+    t0 = time.perf_counter()
+    with open(log_w, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "advoc_tpu_torch.models.advoc.train_evaluate", "--mode",
+             "train", "--train_dir", str(run_w), "--data_placement", "wire", "--max_steps",
+             "100000", "--ckpt_every", "8", "--log_every", "8", *common],
+            stdout=f, stderr=subprocess.STDOUT, cwd=pathlib.Path(__file__).resolve().parent)
+        try:
+            while not (run_w / "8" / "state.pt").exists():
+                require(child.poll() is None and time.perf_counter() - t0 < 180,
+                        f"wire child ended or stalled: {log_w.read_text()[-2000:]}")
+                time.sleep(0.2)
+        finally:
+            child.kill()
+            child.wait()
+    mgr = CheckpointManager(run_w, use_async=False)
+    killed_at = mgr.latest_step()
+    mgr.close()
+    (gs, ds, step), text, rows = run_cli(["--mode", "train", "--train_dir", str(run_w),
+                                          "--data_placement", "wire", "--max_steps",
+                                          str(killed_at + 16), "--ckpt_every", "1000",
+                                          "--log_every", "8", *common])
+    require(f"resumed from step {killed_at}" in text and step == killed_at + 16
+            and gs.step == ds.step == killed_at + 16,
+            f"resume after the kill at {killed_at} ended at {step}")
+    out["wire_steps_per_s"] = [r for _, r, _ in rows[1:]]
+    print(f"(i) train --data_placement wire: killed after its checkpoint at step {killed_at} "
+          f"({time.perf_counter() - t0:.1f} s), resumed to {step}; steps/s after the first "
+          f"window {out['wire_steps_per_s']}")
+    del gs, ds
+
+    # -- (i-c) the card's first step against the CPU port's, same weights -------
+    # bf16 convolutions summed in other orders on the two devices: the losses
+    # are means over ≥ 2·256·512 values, so rounding averages out; 2e-2
+    # relative.
+    g_c, d_c = AdvocGenerator(cfg), PatchDiscriminator(cfg)
+    gan.make_states(g_c, d_c, seed=1)
+    g_d, d_d = copy.deepcopy(g_c).to(dev), copy.deepcopy(d_c).to(dev)
+    wav2 = torch.tensor(np.stack([synthetic_speech(10 + i, cfg.n_frames * HOP) for i in range(2)]))
+    states = {}
+    for where, g, d, w in (("cpu", g_c, d_c, wav2), ("cuda", g_d, d_d, wav2.to(dev))):
+        gs = gan.TrainState(g, gan.adam()(g.parameters()))
+        ds = gan.TrainState(d, gan.adam()(d.parameters()))
+        states[where] = gan.make_advoc_train_step(g, d, cfg)(gs, ds, w)[2]
+    parity = {k: (float(states["cuda"][k]), float(states["cpu"][k]))
+              for k in ("d_loss", "g_loss", "g_l1")}
+    for k, (a, b) in parity.items():
+        require(abs(a - b) <= 2e-2 * abs(b), f"first step {k}: card {a} vs CPU {b}")
+    out["parity"] = parity
+    print("(i) first step at full width, batch 2, card vs CPU port: " + ", ".join(
+        f"{k} {a:.5f} vs {b:.5f} (rel {abs(a - b) / abs(b):.1e})" for k, (a, b) in parity.items()))
+    del g_c, d_c, g_d, d_d
+
+    # -- (i-d) learning, the step split, memory and a trace ---------------------
+    g, d = AdvocGenerator(cfg).to(dev), PatchDiscriminator(cfg).to(dev)
+    gs, ds = gan.make_states(g, d, seed=2, g_tx=gan.adam(2e-3), d_tx=gan.adam(2e-3))
+    step_fn = gan.make_advoc_train_step(g, d, cfg)
+    batch = torch.tensor(np.stack([synthetic_speech(20 + i, cfg.n_frames * HOP)
+                                   for i in range(8)]), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    l1s = [float(step_fn(gs, ds, batch)[2]["g_l1"]) for _ in range(10)]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    require(l1s[-1] < l1s[0], f"g_l1 over 10 steps at lr 2e-3: {l1s}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    feat = gan.featurize_advoc
+
+    def timed_feat(*a, **k):
+        r = feat(*a, **k)
+        ev[1].record()
+        return r
+
+    def timed(apply, e):
+        def f(grads):
+            apply(grads)
+            e.record()
+        return f
+
+    gan.featurize_advoc = timed_feat
+    ds.apply_gradients = timed(ds.apply_gradients, ev[2])
+    gs.apply_gradients = timed(gs.apply_gradients, ev[3])
+    try:
+        split = []
+        for _ in range(5):
+            ev[0].record()
+            step_fn(gs, ds, batch)
+            torch.cuda.synchronize()
+            split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    finally:
+        gan.featurize_advoc = feat
+        del ds.apply_gradients, gs.apply_gradients
+    out["split_ms"] = {k: float(np.median([s[i] for s in split]))
+                       for i, k in enumerate(("featurize", "d_update", "g_update"))}
+    wall_ms, by_name = device_trace(lambda: step_fn(gs, ds, batch))
+    busy = sum(ms for ms, _ in by_name.values())
+    out["trace"] = {"wall_ms": wall_ms, "busy_ms": busy,
+                    "launches": sum(n for _, n in by_name.values())}
+    print(f"(i) g_l1 at lr 2e-3 over 10 steps on one batch of 8: {l1s[0]:.5f} → {l1s[-1]:.5f}; "
+          f"step split by CUDA events (median of 5, ms): {out['split_ms']}; peak memory "
+          f"{out['peak_gb']:.2f} GB")
+    if busy > 0:
+        print(f"device trace of one train step: wall {wall_ms:.2f} ms, kernels {busy:.2f} ms, "
+              f"busy share {busy / wall_ms:.3f}, {out['trace']['launches']} launches")
+        for k, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            print(f"  {ms:8.2f} ms {n:4d}×  {k[:90]}")
+    else:
+        print("device trace of one train step: not measured (no device time recorded)")
+    del g, d, gs, ds
+
+    # -- (i-e) eval --eval_once and infer on the hbm run ------------------------
+    zero_counts()
+    seen = cli.main(["--mode", "eval", "--train_dir", str(run), "--eval_once", *common])
+    torch.cuda.synchronize()
+    out["eval_launches"] = counts()
+    require(seen == 24 and out["eval_launches"]["griffin_lim_tc"] > 0,
+            f"eval evaluated step {seen} with launches {out['eval_launches']}")
+    zero_counts()
+    paths = cli.main(["--mode", "infer", "--train_dir", str(run), "--device", "cuda"])
+    torch.cuda.synchronize()
+    out["infer_launches"] = counts()
+    require(len(paths) == 1 and out["infer_launches"]["griffin_lim_tc"] > 0,
+            f"infer wrote {paths} with launches {out['infer_launches']}")
+    y = torch.tensor(audioio.decode_audio(paths[0]), device=dev)
+    mel_in = sp.waveform_to_r9y9_melspec(torch.tensor(synthetic_speech(0, SR * 4), device=dev))
+    out["infer_mel_l1"] = mel_l1(y, mel_in)
+    require(math.isfinite(out["infer_mel_l1"]), f"infer mel L1 {out['infer_mel_l1']}")
+    print(f"(i) eval --eval_once at step {seen}: launches {out['eval_launches']}; infer: "
+          f"launches {out['infer_launches']}, mel L1 of its wav {out['infer_mel_l1']:.5f}")
+
+    # -- (i-f) the packed tail under grad raises on the card --------------------
+    cfg_pk = dataclasses.replace(cfg, packed_tail=True)
+    g_pk = AdvocGenerator(cfg_pk).to(dev)
+    x = torch.rand((1, cfg.n_frames, cfg.n_freq), device=dev)
+    for what, fn in (("forward under grad", lambda: g_pk(x)),
+                     ("make_advoc_train_step", lambda: gan.make_advoc_train_step(
+                         g_pk, PatchDiscriminator(cfg_pk).to(dev), cfg_pk))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            require("backward" in str(e), f"packed tail {what}: {e}")
+        else:
+            require(False, f"packed tail {what} did not raise on the card")
+    with torch.no_grad():
+        require(g_pk(x).shape == x.shape, "packed tail runs under no_grad")
+    print("(i) packed_tail on the card: a forward under grad and the train step raise "
+          "NotImplementedError; under no_grad it runs")
+    out["phase_s"] = time.perf_counter() - t_start
+    print(f"phase (i) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1047,6 +1286,7 @@ def main() -> int:
     # -- 6. The serving path -----------------------------------------------------
     served = serving(dev, gen, voc, mels, mel_l1, zero_counts, counts)
     lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts)
+    trained = training(dev, mel_l1, zero_counts, counts)
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
@@ -1064,6 +1304,8 @@ def main() -> int:
         "launches_vocoder_highest": hi_launches["griffin_lim"],
         "launches_vocode_cli": served["cli_launches"]["griffin_lim"],
         "launches_streaming": served["stream_launches"]["griffin_lim"],
+        "launches_train_eval": trained["eval_launches"]["griffin_lim"],
+        "launches_train_infer": trained["infer_launches"]["griffin_lim"],
         "checks": "pass",
         "max_abs_err": max(main_errs["highest"]),
         "ms": gl_ms,
@@ -1089,6 +1331,8 @@ def main() -> int:
         "launches_vocoder_path": voc_launches["griffin_lim_tc"],
         "launches_vocode_cli": served["cli_launches"]["griffin_lim_tc"],
         "launches_streaming": served["stream_launches"]["griffin_lim_tc"],
+        "launches_train_eval": trained["eval_launches"]["griffin_lim_tc"],
+        "launches_train_infer": trained["infer_launches"]["griffin_lim_tc"],
         "checks": "pass",
         "max_abs_err": max(main_errs["default"]),
         "ms": gl_tc_ms,

@@ -267,6 +267,42 @@ def test_packed_tail_generator_takes_b4(dev, n_frames):
     assert float((got - want).abs().mean()) < 5e-3
 
 
+def test_packed_tail_refuses_gradients_on_the_card(dev):
+    """B4 has no backward: under grad the packed tail raises on the card
+    (it would silently cut the gradient), and so does building a train step
+    with it; under no_grad it runs."""
+    from advoc_tpu_torch.models.advoc import PatchDiscriminator
+    from advoc_tpu_torch.train import gan
+
+    cfg = AdvocConfig(n_frames=64, width=8, depth=4, packed_tail=True)
+    g = AdvocGenerator(cfg).to(dev)
+    x = torch.rand((1, 64, 513), device=dev)
+    with pytest.raises(NotImplementedError, match="backward"):
+        g(x)
+    with pytest.raises(NotImplementedError, match="packed_tail"):
+        gan.make_advoc_train_step(g, PatchDiscriminator(cfg).to(dev), cfg)
+    with torch.no_grad():
+        assert g(x).shape == x.shape
+
+
+def test_train_step_on_the_card(dev):
+    """One bf16 train step at a small width: finite metrics on the device,
+    every tensor updated, no port kernel launched."""
+    from advoc_tpu_torch.models.advoc import PatchDiscriminator
+    from advoc_tpu_torch.train import gan
+
+    cfg = AdvocConfig(n_frames=64, width=8, depth=4, disc_width=8)
+    g, d = AdvocGenerator(cfg).to(dev), PatchDiscriminator(cfg).to(dev)
+    gs, ds = gan.make_states(g, d, seed=0)
+    before = {n: p.detach().clone() for n, p in g.named_parameters()}
+    launches = (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches)
+    wav = torch.tensor(np.stack([synthetic_speech(i, 64 * 256) for i in range(2)]), device=dev)
+    _, _, m = gan.make_advoc_train_step(g, d, cfg)(gs, ds, wav)
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in m.values())
+    assert all(not torch.equal(p, before[n]) for n, p in g.named_parameters())
+    assert (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches) == launches
+
+
 def test_packed_up_kernel_rejects_what_it_cannot_take(dev):
     x = torch.zeros((1, 16, 8, 12), dtype=torch.bfloat16, device=dev)
     wt, bias = torch.zeros((4, 4, 12, 8), device=dev), torch.zeros(8, device=dev)

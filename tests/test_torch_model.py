@@ -273,8 +273,14 @@ class TestInitAndModes:
             AdvocGenerator(AdvocConfig(**cfg))
 
     def test_discriminator_and_hook_raise(self):
-        with pytest.raises(NotImplementedError):
-            PatchDiscriminator()
+        """PatchDiscriminator, which raised before, is ported
+        (tests/test_torch_train.py holds it to flax); it rejects a freq_pack
+        that does not divide the bins, as the generator does. The profiling
+        hook still raises."""
+        d = PatchDiscriminator(AdvocConfig(n_frames=32, disc_width=8))
+        assert d(torch.zeros(1, 32, 513), torch.zeros(1, 32, 513)).shape == (1, 4, 32, 1)
+        with pytest.raises(ValueError, match="freq_pack"):
+            PatchDiscriminator(AdvocConfig(freq_pack=3))
         g = AdvocGenerator(AdvocConfig(n_frames=32, width=8, depth=3))
         with pytest.raises(NotImplementedError):
             g(torch.zeros(1, 32, 513), truncate_after="down0")

@@ -396,17 +396,18 @@ class TestServerCLI:
     @pytest.mark.parametrize("extra", [["--train_dir", "x"],
                                        ["--engine", "lws_block", "--mel_context", str(CH + 1)],
                                        ["--mel_context", "2"]])
-    def test_unported_options_raise(self, extra):
-        """--train_dir is not ported and raises so. --engine lws_* and
-        --mel_context, which raised the same way before, run now
-        (test_selftest_lws_engines): their cases hold the JAX package's
-        ValueErrors instead, a mel_context past the chunk and mel_context on
-        the gl engine."""
+    def test_unported_options_raise(self, extra, tmp_path):
+        """--train_dir, --engine lws_* and --mel_context, which raised
+        NotImplementedError before, run now (tests/test_torch_train_cli.py,
+        test_selftest_lws_engines): --train_dir on a directory without a
+        checkpoint raises FileNotFoundError, and the other cases hold the JAX
+        package's ValueErrors, a mel_context past the chunk and mel_context
+        on the gl engine."""
         from advoc_tpu_torch.serve.cli import main
 
         if "--train_dir" in extra:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                main(["--selftest", "1"] + self.ARGS + extra)
+            with pytest.raises(FileNotFoundError, match="no checkpoint"):
+                main(["--selftest", "1"] + self.ARGS + ["--train_dir", str(tmp_path / "run")])
             return
         with pytest.raises(ValueError, match="mel_context"):
             main(["--selftest", "1"] + self.ARGS + extra)

@@ -460,15 +460,16 @@ class TestSpectralPieces:
         np.testing.assert_allclose(ts_.numpy(), np.asarray(js_), atol=bound)
 
     def test_vocoder_pghi_reaches_both_forms(self, mel, monkeypatch):
-        """phase_init="pghi": the matmul scan starts from pghi_init_phase of
-        the projected magnitude, and so does the kernel form (on 512 bins)."""
+        """phase_init="pghi": the matmul scan (at the Vocoder's precision,
+        "default") starts from pghi_init_phase of the projected magnitude,
+        and so does the kernel form (on 512 bins)."""
         from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
 
         kw = dict(chunk_frames=64, gl_iters=2, device="cpu", phase_init="pghi", pghi_coef=0.5)
         m = torch.tensor(mel[:64])
         est = tsp.normalize_db(tsp.amp_to_db(tsp.r9y9_melspec_to_magspec(m)) - P.ref_level_db)
         mag = tsp.db_to_amp(tsp.denormalize_db(est) + P.ref_level_db)  # the heuristic Vocoder's
-        want = tsp.griffin_lim(mag, n_iters=2, momentum=0.99,
+        want = tsp.griffin_lim(mag, n_iters=2, momentum=0.99, precision="default",
                                init_phase=tsp.pghi_init_phase(mag, P, 0.5))
         torch.testing.assert_close(Vocoder(phase_impl="xla", **kw)(m), want, rtol=0, atol=0)
         seen = []

@@ -4,7 +4,10 @@ A tiny float32 generator (as tests/test_infer.py's) is initialized in flax
 and converted, so both vocoders run the same weights on the same mel. On the
 CPU both take the matmul G-L scan, so waveforms agree closely for a few
 iterations; at 30 iterations of momentum 0.99 G-L is chaotic and only the
-re-extracted mel L1 is compared.
+re-extracted mel L1 is compared. The JAX Vocoder passes its precision
+(DEFAULT) to that scan, which JAX computes in fp32 on the CPU, while the
+port's scan rounds its operands to bf16 at "default" as the card does: the
+comparisons with JAX run the port at ``gl_precision="highest"``.
 """
 
 import jax
@@ -64,7 +67,7 @@ def _mel_l1(wav, mel):
 def _pair(gens, mel, **kw):
     apply, params, tg = gens
     jv = JVocoder(g_apply=apply, g_params=params, params=P, chunk_frames=64, **kw)
-    tv = Vocoder(tg, chunk_frames=64, device="cpu", **kw)
+    tv = Vocoder(tg, chunk_frames=64, device="cpu", gl_precision="highest", **kw)
     return np.asarray(jv(mel)), tv(mel).numpy()
 
 
@@ -80,7 +83,7 @@ class TestAgainstJax:
 
     def test_heuristic_mode(self, mel):
         jv = JVocoder(params=P, chunk_frames=64, gl_iters=2)
-        tv = Vocoder(chunk_frames=64, gl_iters=2, device="cpu")
+        tv = Vocoder(chunk_frames=64, gl_iters=2, device="cpu", gl_precision="highest")
         assert tv.mel_projection == 0.0
         want, got = np.asarray(jv(mel)), tv(mel).numpy()
         np.testing.assert_allclose(got, want, atol=RTOL_2_ITERS * np.abs(want).max())
@@ -90,7 +93,8 @@ class TestAgainstJax:
         want, got = _pair(gens, mels, gl_iters=2)
         assert got.shape == want.shape == (2, 64 * HOP)
         np.testing.assert_allclose(got, want, atol=RTOL_2_ITERS * np.abs(want).max())
-        single = Vocoder(gens[2], chunk_frames=64, gl_iters=2, device="cpu")(mels[1])
+        single = Vocoder(gens[2], chunk_frames=64, gl_iters=2, device="cpu",
+                         gl_precision="highest")(mels[1])
         np.testing.assert_allclose(single.numpy(), got[1], atol=RTOL_2_ITERS * np.abs(got).max())
 
     def test_copy_synthesis_slice(self):
@@ -104,7 +108,7 @@ class TestAgainstJax:
         assert tmel.shape == jmel.shape == (150, 80)
         kw = dict(chunk_frames=64, gl_iters=2, phase_impl="xla")
         want = np.asarray(JVocoder(g_apply=apply, g_params=params, params=P, **kw)(jmel))
-        got = Vocoder(tg, device="cpu", **kw)(tmel).numpy()
+        got = Vocoder(tg, device="cpu", gl_precision="highest", **kw)(tmel).numpy()
         assert got.shape == want.shape == (150 * HOP,)
         np.testing.assert_allclose(got, want, atol=RTOL_2_ITERS * np.abs(want).max())
 
@@ -158,24 +162,51 @@ class TestVocoder:
 
     @pytest.mark.parametrize("gl_precision", [None, "default", "highest"])
     def test_gl_precision_passes_through(self, gens, mel, monkeypatch, gl_precision):
-        """None means "default", JAX's split_synth, as in the JAX Vocoder;
-        the kernel form gets it, the matmul scan stays fp32."""
+        """None means "default", as in the JAX Vocoder, and both forms get
+        it: the kernel form (JAX's split_synth) and, as the JAX Vocoder
+        passes its precision to the XLA loop, the matmul scan (bf16
+        operands at "default")."""
         from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
 
-        seen = []
+        seen, scan = [], []
         real = tgl.griffin_lim_kernel
         monkeypatch.setattr(tgl, "griffin_lim_kernel",
                             lambda *a, **kw: seen.append(kw["precision"]) or real(*a, **kw))
+        real_gl = tsp.griffin_lim
+        monkeypatch.setattr(tsp, "griffin_lim",
+                            lambda *a, **kw: scan.append(kw) or real_gl(*a, **kw))
         kw = dict(chunk_frames=64, gl_iters=2, device="cpu", gl_precision=gl_precision)
         kern = Vocoder(gens[2], phase_impl="kernel", **kw)
         want = gl_precision or "default"
         assert kern.gl_precision == want
         kern(mel[:64])
         assert seen == [want]
-        Vocoder(gens[2], phase_impl="xla", **kw)(mel[:64])
+        got = Vocoder(gens[2], phase_impl="xla", **kw)(mel[:64])
         assert seen == [want]
+        assert scan[-1].get("fft_impl", "matmul") == "matmul" and scan[-1]["precision"] == want
+        scan.clear()
+        torch.testing.assert_close(Vocoder(gens[2], phase_impl="xla", **kw)(mel[:64]), got,
+                                   rtol=0, atol=0)
         with pytest.raises(ValueError, match="gl_precision"):
             Vocoder(device="cpu", gl_precision="bf16")
+
+    def test_matmul_scan_takes_the_precision(self, gens, mel, monkeypatch):
+        """phase_impl="xla" at "default" and at "highest": each output is the
+        matmul form at that precision on the Vocoder's magnitude, and the
+        two differ (bf16 operands against fp32)."""
+        calls = []
+        real_gl = tsp.griffin_lim
+        monkeypatch.setattr(tsp, "griffin_lim",
+                            lambda mag, *a, **kw: calls.append((mag, a, kw)) or real_gl(mag, *a, **kw))
+        outs = {}
+        for prec in ("default", "highest"):
+            outs[prec] = Vocoder(gens[2], chunk_frames=64, gl_iters=2, device="cpu",
+                                 phase_impl="xla", gl_precision=prec)(mel[:64])
+            mag, a, kw = calls[-1]
+            assert kw["precision"] == prec
+            want = real_gl(mag, *a, **{**kw, "precision": prec})[0]
+            torch.testing.assert_close(outs[prec], want, rtol=0, atol=0)
+        assert not torch.equal(outs["default"], outs["highest"])
 
     @pytest.mark.parametrize("n_fft,hop,on_card", [
         (1024, 256, True), (2048, 512, True), (1000, 250, True), (1024, 200, False),
