@@ -3,9 +3,8 @@
 from advoc_tpu_torch.models.advoc.convert import (
     flax_disc_to_torch_state_dict,
     flax_to_torch_state_dict,
-    optax_adam_to_torch,
 )
 from advoc_tpu_torch.models.advoc.model import AdvocConfig, AdvocGenerator, PatchDiscriminator
 
 __all__ = ["AdvocConfig", "AdvocGenerator", "PatchDiscriminator", "flax_disc_to_torch_state_dict",
-           "flax_to_torch_state_dict", "optax_adam_to_torch"]
+           "flax_to_torch_state_dict"]

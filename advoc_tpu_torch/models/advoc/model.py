@@ -8,13 +8,15 @@ package's NHWC (B, T, 512/p, p). The Nyquist bin passes through unchanged.
 
 As in flax, parameters are float32 and every convolution, activation and
 norm output runs in ``cfg.dtype`` (bfloat16 by default). The flax layers map
-onto torch as follows (checked by ``tests/test_torch_model.py``):
+onto torch as follows (checked by ``tests/test_torch_model.py``), through
+the families' shared :mod:`advoc_tpu_torch.models.layers`:
 
-* ``Conv(k4, s2, "SAME")`` pads (1, 1) per axis: ``conv2d(stride=2,
-  padding=1)``; ``Conv(k3, "SAME")``: ``padding=1``.
+* ``Conv(k4, s2, "SAME")`` pads (1, 1) per axis on even sizes and
+  ``Conv(k3, "SAME")`` (1, 1): :func:`~advoc_tpu_torch.models.layers.conv_same`.
 * ``ConvTranspose(k4, s2, "SAME")`` is ``conv_transpose2d(stride=2,
   padding=1)`` with the kernel flipped spatially (flax does not transpose
-  it); :mod:`.convert` does the flip.
+  it; :mod:`.convert` does the flip):
+  :func:`~advoc_tpu_torch.models.layers.conv_transpose_same`.
 * ``GroupNorm`` has eps 1e-6 (torch's default is 1e-5), f32 statistics with
   var = E[x²] − E[x]², and its output in the compute dtype.
 
@@ -32,12 +34,19 @@ magnitude) pairs, the adversary of training (:mod:`advoc_tpu_torch.train.gan`).
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advoc_tpu_torch.models.layers import (
+    DTYPES,
+    GroupNorm,
+    conv_same,
+    conv_transpose_same,
+    flax_init,
+)
+from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
 
 Tensor = torch.Tensor
@@ -70,79 +79,7 @@ class AdvocConfig:
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-                "float16": torch.float16}[self.dtype]
-
-
-class GroupNorm(nn.Module):
-    """flax ``GroupNorm``: eps 1e-6, f32 statistics (fast variance, clamped
-    at 0), output cast to ``dtype``. Parameters ``weight``/``bias`` (f32)."""
-
-    def __init__(self, groups: int, channels: int, dtype: torch.dtype):
-        super().__init__()
-        self.groups, self.dtype = groups, dtype
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: Tensor) -> Tensor:
-        b, c = x.shape[:2]
-        xf = x.to(torch.float32)
-        g = xf.reshape(b, self.groups, -1)
-        mean = g.mean(-1)
-        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
-        shape = (b, c) + (1,) * (x.ndim - 2)
-        mean = mean.repeat_interleave(c // self.groups, 1).reshape(shape)
-        inv = torch.rsqrt(var + 1e-6).repeat_interleave(c // self.groups, 1).reshape(shape)
-        w = self.weight.reshape((1, c) + (1,) * (x.ndim - 2))
-        bias = self.bias.reshape(w.shape)
-        return ((xf - mean) * (inv * w) + bias).to(self.dtype)
-
-
-def _conv(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> Tensor:
-    """flax ``Conv(dtype=...)``: input, kernel and bias cast to ``dtype``."""
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    stride=conv.stride, padding=conv.padding, **kw)
-
-
-def _flax_init(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's initializers on every layer of ``module``: lecun_normal kernels
-    (truncated normal at ±2σ, σ = 1/√fan_in / 0.8796), zero biases,
-    GroupNorm scale 1, bias 0. fan_in = kh·kw·cin, for the transposed
-    convs too, as in flax."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                kh, kw = m.kernel_size
-                std = 1.0 / math.sqrt(kh * kw * m.in_channels) / 0.87962566103423978
-                # Drawn on the generator's device and copied: the same weights
-                # wherever the module lives.
-                w = torch.empty(m.weight.shape, device=generator.device)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-                m.weight.copy_(w)
-                m.bias.zero_()
-            elif isinstance(m, GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-
-
-def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
-    """flax ``padding="SAME"`` on an axis of ``n``: out = ⌈n / s⌉, the total
-    padding split with the extra pixel after (k4/s2 on an even n: (1, 1);
-    k4/s1: (1, 2))."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
-def _conv_same(x: Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> Tensor:
-    """flax ``Conv(padding="SAME", dtype=...)`` of an NCHW ``x``: padded
-    inside the convolution where the padding is symmetric, else by ``F.pad``
-    first."""
-    (k, _), (s, _) = conv.kernel_size, conv.stride
-    (t0, t1), (w0, w1) = _same_pads(x.shape[2], k, s), _same_pads(x.shape[3], k, s)
-    if t0 != t1 or w0 != w1:
-        x, t0, w0 = F.pad(x, (w0, w1, t0, t1)), 0, 0
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    stride=conv.stride, padding=(t0, w0))
+        return DTYPES[self.dtype]
 
 
 class _Down(nn.Module):
@@ -155,7 +92,7 @@ class _Down(nn.Module):
         self.norm = GroupNorm(cfg.norm_groups, features, self.dtype) if use_norm else None
 
     def forward(self, x: Tensor) -> Tensor:
-        x = _conv(x, self.conv, self.dtype)
+        x = conv_same(x, self.conv, self.dtype)
         if self.norm is not None:
             x = self.norm(x)
         return F.leaky_relu(x, 0.2)
@@ -175,10 +112,7 @@ class _Up(nn.Module):
         self.norm = GroupNorm(cfg.norm_groups, features, self.dtype)
 
     def forward(self, x: Tensor) -> Tensor:
-        c = self.conv
-        x = F.conv_transpose2d(x.to(self.dtype), c.weight.to(self.dtype),
-                               c.bias.to(self.dtype), stride=2, padding=1)
-        return F.relu(self.norm(x))
+        return F.relu(self.norm(conv_transpose_same(x, self.conv, self.dtype)))
 
 
 class _PackedTailUp(nn.Module):
@@ -214,13 +148,8 @@ class _PackedTailUp(nn.Module):
         # The converter flips the flax kernel; B4 takes flax's (4, 4, cin, f).
         wt = self.conv.weight.flip(2, 3).permute(2, 3, 0, 1)
         if self.dtype == torch.bfloat16 and x.is_cuda:
-            # B4 has no backward (nor has the Pallas kernel, which has no
-            # custom_vjp): a gradient would silently stop here.
-            if torch.is_grad_enabled() and (
-                    x.requires_grad or any(p.requires_grad for p in self.parameters())):
-                raise NotImplementedError(
-                    "packed_tail on a CUDA device runs kernel B4, which has no backward: "
-                    "train with packed_tail=False (the same parameters) or under no_grad")
+            _build.refuse_grad([x, *self.parameters()], "packed_tail (kernel B4)",
+                               "the same parameters with packed_tail=False")
             tm = next(t for t in (16, 8, 4, 2, 1) if h % t == 0 and (h // 2) % t == 0)
             y, s1, s2 = packed_up_kernel(x.to(self.dtype).contiguous(), wt, self.conv.bias,
                                          f=f, tm=tm, with_stats=True)
@@ -289,8 +218,8 @@ class AdvocGenerator(nn.Module):
         self.head = nn.Conv2d(x_ch, p, k, padding=k // 2)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's initializers (:func:`_flax_init`)."""
-        _flax_init(self, generator)
+        """flax's initializers (:func:`~advoc_tpu_torch.models.layers.flax_init`)."""
+        flax_init(self, generator)
 
     def forward(self, est: Tensor, truncate_after: str | None = None) -> Tensor:
         if truncate_after is not None:
@@ -309,7 +238,7 @@ class AdvocGenerator(nn.Module):
         for down in self.downs:
             x = down(x)
             skips.append(x)
-        x = F.relu(_conv(x, self.bottleneck, dt))
+        x = F.relu(conv_same(x, self.bottleneck, dt))
         for i, up in enumerate(self.ups):
             skip = skips[len(skips) - 1 - i].to(x.dtype)
             if isinstance(up, _PackedTailUp):
@@ -321,7 +250,7 @@ class AdvocGenerator(nn.Module):
             else:
                 x = up(torch.cat([x, skip], dim=1))
         if cfg.fast_head:
-            d = _conv(torch.cat([x, skips[0].to(x.dtype)], dim=1), self.head, dt)
+            d = conv_same(torch.cat([x, skips[0].to(x.dtype)], dim=1), self.head, dt)
             h, w = d.shape[2:]
             # Depth-to-space: channel dy·2p + dx·p + k of half-res pixel
             # (h, w) is frame 2h + dy, bin (2w + dx)·p + k.
@@ -339,7 +268,7 @@ class AdvocGenerator(nn.Module):
             delta = (x @ wblk.to(dt) + self.head.bias.repeat(2).to(dt)).to(torch.float32)
             delta = delta.reshape(b, t, n_bins)
         else:
-            delta = _conv(x, self.head, dt).to(torch.float32)  # (B, p, T, W)
+            delta = conv_same(x, self.head, dt).to(torch.float32)  # (B, p, T, W)
             delta = delta.permute(0, 2, 3, 1).reshape(b, t, n_bins)
         # jnp.clip's gradient, half at a tie (torch.clamp passes all of it):
         # body + delta is exactly 0 where the estimate is at the dB floor and
@@ -393,8 +322,8 @@ class PatchDiscriminator(nn.Module):
         self.logit = nn.Conv2d(cin, 1, 4)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's initializers (:func:`_flax_init`)."""
-        _flax_init(self, generator)
+        """flax's initializers (:func:`~advoc_tpu_torch.models.layers.flax_init`)."""
+        flax_init(self, generator)
 
     def forward(self, condition: Tensor, mag: Tensor) -> Tensor:
         cfg = self.cfg
@@ -410,9 +339,9 @@ class PatchDiscriminator(nn.Module):
         x = torch.stack([condition, mag], dim=-1)[..., :n_bins, :] * 2.0 - 1.0
         x = x.to(dt).reshape(b, t, n_bins // p, 2 * p).permute(0, 3, 1, 2)
         for i, conv in enumerate(self.convs):
-            x = _conv_same(x, conv, dt)
+            x = conv_same(x, conv, dt)
             if i > 0:
                 x = self.norms[str(i)](x)
             x = F.leaky_relu(x, 0.2)
-        logits = _conv_same(x.to(torch.float32), self.logit, torch.float32)
+        logits = conv_same(x.to(torch.float32), self.logit, torch.float32)
         return logits.permute(0, 2, 3, 1)

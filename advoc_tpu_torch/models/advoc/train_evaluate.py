@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import pathlib
 
 import numpy as np
@@ -85,13 +84,9 @@ def make_config(args):
 
 
 def _device(args) -> torch.device:
-    from advoc_tpu_torch.infer.vocoder import _resolve_device
+    from advoc_tpu_torch.train.harness import train_device
 
-    if (args.n_devices or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "data-parallel training (--n_devices > 1, several processes) is not ported "
-            "yet: ROADMAP.md queue A item 4 (DDP)")
-    return _resolve_device(args.device)
+    return train_device(args.device, args.n_devices)
 
 
 def _models_and_states(cfg, seed: int, device: torch.device):

@@ -5,7 +5,9 @@ library with a plain C interface and loaded with ``ctypes``. The library goes
 into ``advoc_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
 keyed by a hash of the sources and the compile command, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Only the repository's own
-sources are built.
+sources are built. :func:`check` turns a launch's error code into an
+exception; :func:`refuse_grad` refuses a call that autograd would record
+through a kernel without a backward.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -95,3 +99,16 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def refuse_grad(tensors, kernel: str, instead: str) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and any of
+    ``tensors`` (a tensor or a list) requires it: ``kernel`` has no backward
+    (no more than the JAX package's Pallas kernel, which has no
+    ``custom_vjp``), so the gradient would stop there without an error.
+    ``instead`` names the differentiable path to use."""
+    tensors = [tensors] if isinstance(tensors, torch.Tensor) else tensors
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} runs a CUDA kernel that has no backward: call it under no_grad or "
+            f"on tensors that need no gradient, or differentiate {instead}")

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from advoc_tpu_torch.ops import reference as ref
+from advoc_tpu_torch.ops.cache import device_cache
 from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 
@@ -125,12 +126,12 @@ def _tc_consts(params: AudioParams) -> tuple[np.ndarray, ...]:
     return (*_tf32_split(maps), *_tf32_split(mel))
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _consts_on(params: AudioParams, device: torch.device) -> tuple[Tensor, Tensor, Tensor]:
     return tuple(torch.as_tensor(c, device=device) for c in _kernel_consts(params))
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _tc_consts_on(params: AudioParams, device: torch.device) -> tuple[Tensor, ...]:
     return tuple(torch.as_tensor(c, device=device) for c in _tc_consts(params))
 
@@ -191,12 +192,17 @@ def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> T
     On a CUDA tensor: the CUDA kernel, one launch on the current stream,
     counted in ``fused_melspec_kernel.launches``; it raises on a tensor or
     AudioParams the kernel does not take, or a failed launch (a hop above
-    736, whose audio window would not fit in shared memory, fails so). On a CPU
-    tensor: the plain version, :func:`fused_melspec_plain`.
+    736, whose audio window would not fit in shared memory, fails so). The
+    kernel has no backward (nor has the Pallas kernel, which has no
+    ``custom_vjp``), so under grad a ``wav`` that requires grad raises
+    rather than lose its gradient: differentiate the STFT path
+    (``spectral.waveform_to_r9y9_melspec(impl="xla")``). On a CPU tensor: the
+    plain version, :func:`fused_melspec_plain`, differentiable.
     """
     _check(wav, params)
     if not wav.is_cuda:
         return fused_melspec_plain(wav, params)
+    _build.refuse_grad(wav, "fused_melspec_kernel", 'the STFT path, impl="xla"')
     if wav.dtype != torch.float32:
         raise ValueError("fused_melspec_kernel needs a float32 waveform")
     if params.n_mels > 80:

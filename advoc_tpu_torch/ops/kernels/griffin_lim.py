@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from advoc_tpu_torch.ops import spectral
+from advoc_tpu_torch.ops.cache import device_cache
 from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 
@@ -80,7 +81,7 @@ def _gl_norm(params: AudioParams, t_frames: int) -> np.ndarray:
     return (1.0 / np.maximum(wsum, 1e-11)).reshape(n_blocks, hop).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple:
     """(fwd_re, fwd_im) (n_fft, F) and (inv_re, inv_im) (F, n_fft), contiguous
     float32 on ``device``, cut to the first ``n_bins`` bins."""
@@ -92,7 +93,7 @@ def _maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple:
     )
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _norm(params: AudioParams, t_frames: int, width: int, device: torch.device) -> Tensor:
     """:func:`_gl_norm` on ``device``, zero-padded to ``width`` columns."""
     norm = _gl_norm(params, t_frames)
@@ -112,7 +113,7 @@ def _split(m: Tensor) -> tuple[Tensor, Tensor]:
     return hi, _bf16(m - hi)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _split_maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple:
     """The split mode's maps as float32 tensors of bf16 values: bf16 fwd_re,
     fwd_im and the (hi, lo) pairs of inv_re and inv_im."""
@@ -239,7 +240,7 @@ def _pad64(n: int) -> int:
     return -(-n // 64) * 64
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _tc_maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple[Tensor, Tensor]:
     """The tensor-core kernel's bf16 maps, zero-padded to F_pad and hop_pad
     (multiples of 64), both K-major:
@@ -388,13 +389,17 @@ def griffin_lim_kernel(
     ``griffin_lim_kernel.tc_launches``: 2·n_iters + 1 for T ≤ 256 without
     ``init_phase``, else 2·n_iters and one fp32 ``gl_synth_ola`` (counted in
     ``launches``). All launch on the current stream; the wrapper raises on a
-    tensor the kernels do not take or a failed launch. On a CPU tensor: the
-    plain version, :func:`griffin_lim_plain`.
+    tensor the kernels do not take or a failed launch. The kernels have no
+    backward (nor has the Pallas kernel), so under grad a ``mag`` or
+    ``init_phase`` that requires grad raises rather than lose its
+    gradient. On a CPU tensor: the plain version, :func:`griffin_lim_plain`.
     """
     _check_shapes(mag, params)
     _check_precision(precision)
     if not mag.is_cuda:
         return griffin_lim_plain(mag, n_iters, momentum, init_phase, params, precision)
+    _build.refuse_grad([mag, *(init_phase or ())], "griffin_lim_kernel",
+                'spectral.griffin_lim(fft_impl="matmul")')
     if mag.dtype != torch.float32 or not mag.is_contiguous():
         raise ValueError("griffin_lim_kernel needs a contiguous float32 tensor")
     b, t, f = mag.shape

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from advoc_tpu_torch.ops import reference as ref
+from advoc_tpu_torch.ops.cache import device_cache
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 
 Tensor = torch.Tensor
@@ -112,14 +113,14 @@ def _nola_norm(params: AudioParams, n_frames: int, length: int) -> np.ndarray:
     return (1.0 / np.maximum(wsum, 1e-11)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _nola_norm_on(params: AudioParams, n_frames: int, length: int, device: torch.device) -> Tensor:
     """:func:`_nola_norm` on ``device``, moved there once: a copy from the
     host on every overlap-add would make the host wait for the card."""
     return torch.as_tensor(_nola_norm(params, n_frames, length), device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _const(params: AudioParams, name: str, device: torch.device) -> Tensor:
     """A named entry of :func:`_consts` / :func:`_dft_consts` as float32 on
     ``device``, moved there once."""
@@ -127,7 +128,7 @@ def _const(params: AudioParams, name: str, device: torch.device) -> Tensor:
     return torch.as_tensor(table[name], dtype=torch.float32, device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _const_bf16(params: AudioParams, name: str, device: torch.device) -> Tensor:
     """:func:`_const` rounded to bfloat16 (to nearest even), moved once: in
     bfloat16 on the card, as float32 holding the rounded values on the CPU
@@ -136,7 +137,7 @@ def _const_bf16(params: AudioParams, name: str, device: torch.device) -> Tensor:
     return w if device.type == "cuda" else w.float()
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _stream_wsum(params: AudioParams, c: int, device: torch.device) -> Tensor:
     """Window-sum of ``c`` overlap-added frames (float64 → float32): the
     static per-push profile of :func:`istft_stream_push`, moved once."""
@@ -541,7 +542,7 @@ def _split_ab(A: np.ndarray, B: np.ndarray, include_self: bool) -> np.ndarray:
     return k.reshape(nj * f * 2, f * 2).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _lws_consts(
     params: AudioParams, band: int, corner: int, include_self: bool, device: torch.device
 ) -> Tensor:
@@ -552,7 +553,7 @@ def _lws_consts(
     return torch.as_tensor(_split_ab(A, B, include_self), device=device)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _lws_online_consts(
     params: AudioParams, band: int, corner: int, look_ahead: int, asymmetric: bool,
     include_self: bool, device: torch.device,
@@ -758,7 +759,7 @@ def lws_online(
     return istft(spec, length, params).reshape(lead + (length,))
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _hop_ramp(params: AudioParams, c: int, device: torch.device) -> Tensor:
     """(C, F) complex e^{i·2π·hop·k·o/n_fft} for frame offsets o = 1 … C and
     bins k (float64 → complex64), moved once."""

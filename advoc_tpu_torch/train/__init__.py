@@ -1,6 +1,7 @@
-"""Training of the port: the advoc GAN step (:mod:`.gan`), checkpoints and
-inference bundles (:mod:`.checkpoint`), summaries (:mod:`.metrics`) and the
-train and eval loops (:mod:`.harness`)."""
+"""Training of the port: the GAN steps of every family (:mod:`.gan`),
+checkpoints and inference bundles (:mod:`.checkpoint`), summaries
+(:mod:`.metrics`), evaluation metrics (:mod:`.eval_metrics`) and the train
+and eval loops (:mod:`.harness`)."""
 
 from advoc_tpu_torch.train.checkpoint import (
     CheckpointManager,

@@ -12,12 +12,19 @@ never writes a gradient into D. The step runs eagerly; its convolutions,
 forward and backward, are cuDNN's (the JAX step ran them as XLA ops, never
 Pallas).
 
+The WaveGAN, conditional-WaveGAN and MelSpecGAN steps
+(:func:`make_wavegan_train_step`, :func:`make_cond_wavegan_train_step`,
+:func:`make_melspecgan_train_step`) run the JAX steps' updates in their
+order: the critics' D updates, each against the same G parameters, then
+one G update scored by the updated D.
+
 A :class:`TrainState` is the counterpart of flax's: the module (which
 holds the parameters), its optimizer and the step count. Randomness (the
-wgan-gp interpolation weights) comes from an explicit ``torch.Generator``
-where JAX splits a ``PRNGKey``. The wavegan, conditional-wavegan and
-melspecgan steps and ``jit_data_parallel`` are not ported yet (ROADMAP.md
-queue A).
+latents z, the wgan-gp interpolation weights ε, the phase-shuffle shifts)
+comes from an explicit ``torch.Generator`` where JAX splits a
+``PRNGKey``; a step's draws can also be passed in whole (``draws=``), so
+a test can give it JAX's. ``jit_data_parallel`` is not ported yet
+(ROADMAP.md queue A item 4).
 """
 
 from __future__ import annotations
@@ -234,6 +241,159 @@ def make_advoc_eval_step(cfg, audio_params: AudioParams = DEFAULT_PARAMS):
             "eval_l1_repaired": torch.mean(torch.abs(fake - real)),
             "eval_l1_heuristic": torch.mean(torch.abs(est - real)),
         }
+
+    return step
+
+
+def latents(n: int, latent_dim: int, seed: int, device=None) -> Tensor:
+    """(n, latent_dim) standard normal latents from a ``torch.Generator``
+    seeded ``seed`` on ``device``: the CLIs' repeatable samples."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n, latent_dim), generator=generator, device=device)
+
+
+def _critic_loss(losses: GanLosses, cfg, d_fn, real: Tensor, fake: Tensor,
+                 eps: Tensor | None) -> Tensor:
+    """The D loss of ``d_fn`` (input → logits) on a real and a fake batch,
+    plus the gradient penalty at ``eps`` under wgan-gp."""
+    loss = losses.d_loss(d_fn(real), d_fn(fake))
+    if losses.needs_gp:
+        loss = loss + cfg.gp_weight * gradient_penalty(d_fn, real, fake, eps=eps)
+    return loss
+
+
+def _draws(generator, device, gp: bool, n_d: int, batch: int, like: Tensor,
+           latent: int | None = None, d_model: nn.Module | None = None) -> dict[str, Tensor]:
+    """A step's random draws: ``z`` (n_d + 1, batch, latent) normal (one per
+    D update and one for G), ``eps`` (n_d, batch, 1, …) uniform shaped to
+    broadcast over ``like`` (under wgan-gp), ``shifts`` (n_d + 1,
+    n_shuffled, batch) for ``d_model``'s phase shuffle."""
+    out = {}
+    if latent is not None:
+        out["z"] = torch.randn((n_d + 1, batch, latent), generator=generator, device=device)
+    if gp:
+        out["eps"] = torch.rand((n_d, batch) + (1,) * (like.ndim - 1), generator=generator,
+                                device=device)
+    if d_model is not None:
+        out["shifts"] = torch.stack([d_model.draw_shifts(batch, generator, device)
+                                     for _ in range(n_d + 1)])
+    return out
+
+
+def make_wavegan_train_step(g_model: nn.Module, d_model: nn.Module, cfg):
+    """The WaveGAN step ``(gstate, dstate, wav, generator=None, draws=None)
+    → (gstate, dstate, metrics)``, the JAX package's: ``wav`` (n_critic, B,
+    T), any loader dtype; for each critic i, one D update on (wav[i], G(z_i))
+    against the same G parameters, the real, fake and gradient-penalty
+    passes sharing one set of phase-shuffle shifts; then one G update scored
+    by the updated D with its own z and shifts. ``draws`` (else drawn from
+    ``generator``): ``z`` (n_critic + 1, B, latent), ``eps`` (n_critic, B, 1)
+    under wgan-gp, ``shifts`` (n_critic + 1, n_shuffled, B), the last of each
+    for G. ``metrics``: ``d_loss`` (the critics' mean) and ``g_loss``."""
+    losses = gan_losses(cfg.gan_type)
+
+    def step(gstate: TrainState, dstate: TrainState, wav: Tensor,
+             generator: torch.Generator | None = None, draws: dict | None = None):
+        if wav.ndim != 3:
+            raise ValueError(f"the wavegan step wants (n_critic, B, T), got {tuple(wav.shape)}")
+        g, d = g_model, d_model
+        wav = as_waveform(wav)
+        n, b = wav.shape[:2]
+        if draws is None:
+            draws = _draws(generator, wav.device, losses.needs_gp, n, b, wav[0],
+                           cfg.latent_dim, d)
+        d_losses = []
+        for i in range(n):
+            with torch.no_grad():
+                fake = g(draws["z"][i])
+            shifts = draws["shifts"][i]
+            d_loss = _critic_loss(losses, cfg, lambda x: d(x, shifts), wav[i], fake,
+                                  draws["eps"][i] if losses.needs_gp else None)
+            dstate.apply_gradients(torch.autograd.grad(d_loss, dstate.params))
+            d_losses.append(d_loss.detach())
+        g_loss = losses.g_loss(d(g(draws["z"][n]), draws["shifts"][n]))
+        gstate.apply_gradients(torch.autograd.grad(g_loss, gstate.params))
+        return gstate, dstate, {"d_loss": torch.stack(d_losses).mean(), "g_loss": g_loss.detach()}
+
+    return step
+
+
+def make_cond_wavegan_train_step(g_model: nn.Module, d_model: nn.Module, cfg,
+                                 audio_params: AudioParams = DEFAULT_PARAMS):
+    """The conditional-WaveGAN step ``(gstate, dstate, wav, generator=None,
+    draws=None) → (gstate, dstate, metrics)``, the JAX package's: mels of
+    the real ``wav`` (B, L ≥ slice_len) by the STFT path (``impl="xla"``,
+    T = 1 + L//hop, cut to n_frames); one D update on (real, mel) and
+    (G(mel), mel) pairs; one G update on the adversarial loss scored by the
+    updated D plus ``mel_l1_weight`` · the L1 of the mel re-extracted from
+    G's waveform, its gradient taken through the featurizer. ``draws``:
+    ``eps`` (1, B, 1) under wgan-gp, ``shifts`` (2, n_shuffled, B), D's then
+    G's. ``metrics``: ``d_loss``, ``g_loss``, ``g_adv``, ``g_mel_l1``."""
+    losses = gan_losses(cfg.gan_type)
+
+    def featurize(x: Tensor) -> Tensor:
+        return spectral.waveform_to_r9y9_melspec(x, audio_params, impl="xla")[:, : cfg.n_frames]
+
+    def step(gstate: TrainState, dstate: TrainState, wav: Tensor,
+             generator: torch.Generator | None = None, draws: dict | None = None):
+        g, d = g_model, d_model
+        wav = as_waveform(wav)
+        with torch.no_grad():
+            mel = featurize(wav)
+            fake = g(mel)
+        real = wav[:, : cfg.slice_len]
+        if draws is None:
+            draws = _draws(generator, wav.device, losses.needs_gp, 1, wav.shape[0], real,
+                           d_model=d)
+        shifts = draws["shifts"][0]
+        d_loss = _critic_loss(losses, cfg, lambda x: d(x, mel, shifts), real, fake,
+                              draws["eps"][0] if losses.needs_gp else None)
+        dstate.apply_gradients(torch.autograd.grad(d_loss, dstate.params))
+
+        fake2 = g(mel)
+        adv = losses.g_loss(d(fake2, mel, draws["shifts"][1]))
+        mel_l1 = torch.mean(torch.abs(featurize(fake2) - mel))
+        g_loss = adv + cfg.mel_l1_weight * mel_l1
+        gstate.apply_gradients(torch.autograd.grad(g_loss, gstate.params))
+        metrics = {"d_loss": d_loss, "g_loss": g_loss, "g_adv": adv, "g_mel_l1": mel_l1}
+        return gstate, dstate, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_melspecgan_train_step(g_model: nn.Module, d_model: nn.Module, cfg,
+                               audio_params: AudioParams = DEFAULT_PARAMS):
+    """The MelSpecGAN step ``(gstate, dstate, wav, generator=None,
+    draws=None) → (gstate, dstate, metrics)``, the JAX package's: ``wav``
+    (n_critic, B, L) featurized at once to mels by the STFT path (cut to
+    n_frames), then for each critic one D update on (mel[i], G(z_i))
+    against the same G parameters, then one G update scored by the updated
+    D. ``draws``: ``z`` (n_critic + 1, B, latent), ``eps`` (n_critic, B, 1,
+    1) under wgan-gp. ``metrics``: ``d_loss`` (the critics' mean), ``g_loss``."""
+    losses = gan_losses(cfg.gan_type)
+
+    def step(gstate: TrainState, dstate: TrainState, wav: Tensor,
+             generator: torch.Generator | None = None, draws: dict | None = None):
+        if wav.ndim != 3:
+            raise ValueError(f"the melspecgan step wants (n_critic, B, L), got {tuple(wav.shape)}")
+        g, d = g_model, d_model
+        with torch.no_grad():
+            mel = spectral.waveform_to_r9y9_melspec(as_waveform(wav), audio_params,
+                                                    impl="xla")[..., : cfg.n_frames, :]
+        n, b = mel.shape[:2]
+        if draws is None:
+            draws = _draws(generator, mel.device, losses.needs_gp, n, b, mel[0], cfg.latent_dim)
+        d_losses = []
+        for i in range(n):
+            with torch.no_grad():
+                fake = g(draws["z"][i])
+            d_loss = _critic_loss(losses, cfg, d, mel[i], fake,
+                                  draws["eps"][i] if losses.needs_gp else None)
+            dstate.apply_gradients(torch.autograd.grad(d_loss, dstate.params))
+            d_losses.append(d_loss.detach())
+        g_loss = losses.g_loss(d(g(draws["z"][n])))
+        gstate.apply_gradients(torch.autograd.grad(g_loss, gstate.params))
+        return gstate, dstate, {"d_loss": torch.stack(d_losses).mean(), "g_loss": g_loss.detach()}
 
     return step
 

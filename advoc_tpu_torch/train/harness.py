@@ -6,12 +6,14 @@ at ``max_steps``, and two guards that end a diverged run loudly after
 saving it. ``step_fn(gstate, dstate, batch, generator)`` is a step of
 :mod:`advoc_tpu_torch.train.gan`; the loop owns its ``torch.Generator``,
 seeded from ``seed`` on the states' device, where the JAX loop splits a
-``PRNGKey``.
+``PRNGKey``. The training CLIs share :func:`train_device` (one device;
+data parallelism raises) and :func:`restore_latest` (their infer modes).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import time
 from typing import Callable, Iterator
@@ -21,6 +23,34 @@ import torch
 
 from advoc_tpu_torch.train import metrics as metrics_lib
 from advoc_tpu_torch.train.checkpoint import CheckpointManager
+
+
+def train_device(device, n_devices: int | None = None) -> torch.device:
+    """The one device the training CLIs run on: ``device`` (cuda, which
+    raises without a card, or cpu). Data parallelism (``n_devices`` > 1,
+    or several processes) raises: it is ROADMAP.md queue A item 4 (DDP)."""
+    from advoc_tpu_torch.infer.vocoder import _resolve_device
+
+    if (n_devices or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "data-parallel training (--n_devices > 1, several processes) is not ported "
+            "yet: ROADMAP.md queue A item 4 (DDP)")
+    return _resolve_device(device)
+
+
+def restore_latest(train_dir: str, template: dict) -> int | None:
+    """Load ``train_dir``'s latest checkpoint into ``template`` (``{"g":
+    gstate, "d": dstate}``) for inference and say so; returns its step, or
+    None (the states keep their random init)."""
+    mgr = CheckpointManager(train_dir)
+    step = mgr.latest_step()
+    if step is not None:
+        mgr.restore(step, template=template)
+        print(f"[infer] restored step {step}", flush=True)
+    else:
+        print("[infer] no checkpoint — random init", flush=True)
+    mgr.close()
+    return step
 
 
 def check_run_config(train_dir: str, config: dict) -> None:
@@ -151,6 +181,7 @@ def eval_loop(
     timeout_s: float = 3600.0,
     audio_fn: Callable | None = None,
     image_fn: Callable | None = None,
+    eval_takes_bundle: bool = False,
 ):
     """Poll ``train_dir`` for new checkpoints and evaluate each.
 
@@ -158,7 +189,11 @@ def eval_loop(
     from ``data_fn()`` and written to ``train_dir/tb_eval``;
     ``audio_fn(generator)`` returns (tag, waveform, sample_rate) tuples and
     ``image_fn(generator)`` (tag, H×W image in [0, 1]) tuples to summarize.
-    Returns the last step evaluated, or None.
+    ``eval_takes_bundle``: ``eval_fn`` gets the whole restored
+    ``{"g": gstate, "d": dstate}`` in place of the generator, for an eval
+    that scores with the trained discriminator (MelSpecGAN's); ``audio_fn``
+    and ``image_fn`` still get the generator. Returns the last step
+    evaluated, or None.
     """
     mgr = CheckpointManager(train_dir)
     writer = metrics_lib.SummaryWriter(f"{train_dir}/tb_eval")
@@ -170,10 +205,11 @@ def eval_loop(
         seen = step
         bundle = mgr.restore(step, template=template)
         generator = bundle["g"].model
+        eval_arg = bundle if eval_takes_bundle else generator
         sums: dict[str, float] = {}
         n = 0
         for batch in data_fn():
-            for k, v in metrics_lib.to_host(eval_fn(generator, batch)).items():
+            for k, v in metrics_lib.to_host(eval_fn(eval_arg, batch)).items():
                 sums[k] = sums.get(k, 0.0) + v
             n += 1
         means = {k: v / max(n, 1) for k, v in sums.items()}

@@ -47,6 +47,18 @@ after:
   CUDA events, peak memory and a device trace; ``eval --eval_once`` and
   ``infer`` on the run (the tensor-core G-L kernel); the packed tail
   refusing gradients on the card.
+* the other model families (:func:`families`, phase (j)), where no port
+  kernel runs in a step: the WaveGAN, conditional-WaveGAN and MelSpecGAN
+  CLIs at their published widths and default batches (16, 16, 32) on the
+  same wavs, 6, 10 (a child killed after its checkpoint at step 2 and
+  resumed) and 6 steps, every G and D tensor updated and every logged
+  metric finite; each card's first step against the CPU port's on the same
+  weights and draws; the step's split by CUDA events, peak memory and a
+  device trace; ``eval --eval_once``, and ``infer`` of both WaveGANs; and
+  the melspecgan → advoc pipeline (``--mode infer --vocode``, heuristic and
+  ``--advoc_ckpt`` on phase (i)'s full-width run), each through the
+  tensor-core G-L kernel, held by mel L1 to the CPU port at the card's
+  split G-L precision.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -65,6 +77,8 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -569,18 +583,43 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     return out
 
 
-def training(dev, mel_l1, zero_counts, counts) -> dict:
+def run_train_cli(main, args: list[str]):
+    """``main(args)`` of a train_evaluate CLI, its log echoed: (result, log,
+    the [train] rows as (step, steps/s, metrics)), every logged metric
+    finite."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(args)
+    text = buf.getvalue()
+    print(text, end="")
+    rows = []
+    for step, rate, msg in re.findall(r"\[train\] step (\d+) \(([\d.]+) steps/s\) (.*)", text):
+        m = {k: float(v) for k, v in (kv.split("=") for kv in msg.split())}
+        require(all(math.isfinite(v) for v in m.values()), f"train step {step} metrics {m}")
+        rows.append((int(step), float(rate), m))
+    return res, text, rows
+
+
+def changed_and_finite(state, init: dict, what: str, constant: tuple[str, ...] = ()) -> None:
+    """Every parameter of ``state`` finite and moved from ``init`` (a CPU
+    copy), but those named in ``constant``, which must not have moved."""
+    for name, p in state.model.named_parameters():
+        require(bool(torch.isfinite(p).all()), f"{what} {name} finite")
+        moved = not torch.equal(p.detach().cpu(), init[name])
+        require(moved != (name in constant),
+                f"{what} {name} {'moved' if moved else 'was not updated'}")
+
+
+def training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     """Phase (i): advoc GAN training at full width (``AdvocConfig()``,
-    batch 8) on 8 synthetic 4-second wavs in a temporary directory, through
-    the train_evaluate CLI and the step it builds. Returns the numbers it
-    printed."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        return _training(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
-
-
-def _training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
+    batch 8) on 8 synthetic 4-second wavs in ``tmp/wavs``, through the
+    train_evaluate CLI and the step it builds; its full-width run stays in
+    ``tmp/hbm`` for phase (j). Returns the numbers it printed."""
     import contextlib
     import io
     import math
@@ -604,24 +643,7 @@ def _training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     zeros = {name: 0 for name in counts()}
 
     def run_cli(args: list[str]):
-        """cli.main(args), its log echoed; (result, the [train] rows as
-        (step, steps/s, metrics)), every logged metric finite."""
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            res = cli.main(args)
-        text = buf.getvalue()
-        print(text, end="")
-        rows = []
-        for step, rate, msg in re.findall(r"\[train\] step (\d+) \(([\d.]+) steps/s\) (.*)", text):
-            m = {k: float(v) for k, v in (kv.split("=") for kv in msg.split())}
-            require(all(math.isfinite(v) for v in m.values()), f"train step {step} metrics {m}")
-            rows.append((int(step), float(rate), m))
-        return res, text, rows
-
-    def changed_and_finite(state, init: dict, what: str) -> None:
-        for name, p in state.model.named_parameters():
-            require(bool(torch.isfinite(p).all()), f"{what} {name} finite")
-            require(not torch.equal(p.detach().cpu(), init[name]), f"{what} {name} was updated")
+        return run_train_cli(cli.main, args)
 
     # -- (i-a) CLI train, the corpus staged on the card ---------------------------
     g0, d0, _, _ = cli._models_and_states(cfg, 0, dev)  # the CLI's initialization
@@ -798,6 +820,295 @@ def _training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     return out
 
 
+def step_split(step_fn, gs, ds, batch, featurize) -> dict:
+    """The step's split by CUDA events (median of 5 after 2 warm steps, ms):
+    D updates from the step's start to D's last Adam step, less
+    ``featurize`` (the step's featurization of ``batch``, timed alone), and
+    the G update; then one traced step and the peak memory of those steps."""
+    ev = {"d": [], "g": []}
+
+    def timed(apply, key):
+        def f(grads):
+            apply(grads)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev[key].append(e)
+        return f
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step_fn(gs, ds, batch)
+    ds.apply_gradients = timed(ds.apply_gradients, "d")
+    gs.apply_gradients = timed(gs.apply_gradients, "g")
+    rows = []
+    try:
+        for _ in range(5):
+            ev["d"].clear()
+            ev["g"].clear()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step_fn(gs, ds, batch)
+            torch.cuda.synchronize()
+            rows.append((start.elapsed_time(ev["d"][-1]), ev["d"][-1].elapsed_time(ev["g"][-1])))
+    finally:
+        del ds.apply_gradients, gs.apply_gradients
+    feat_ms = cuda_ms(lambda: featurize(batch))
+    d_ms, g_ms = (float(np.median([r[i] for r in rows])) for i in range(2))
+    out = {"split_ms": {"featurize": feat_ms, "d_updates": d_ms - feat_ms, "g_update": g_ms},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    wall_ms, by_name = device_trace(lambda: step_fn(gs, ds, batch))
+    busy = sum(ms for ms, _ in by_name.values())
+    out["trace"] = {"wall_ms": wall_ms, "busy_ms": busy,
+                    "launches": sum(n for _, n in by_name.values())}
+    return out
+
+
+def family_draws(name: str, cfg, d, n_d: int, b: int) -> dict:
+    """A step's draws from a seeded CPU generator, in the layout the port's
+    steps take (``gan.make_*_train_step``'s ``draws``): the same on the card
+    and on the CPU."""
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    if name != "cond_wavegan":
+        out["z"] = torch.randn((n_d + 1, b, cfg.latent_dim), generator=gen)
+    if cfg.gan_type == "wgan-gp":
+        out["eps"] = torch.rand((n_d, b) + ((1, 1) if name == "melspecgan" else (1,)),
+                                generator=gen)
+    if name != "melspecgan":
+        out["shifts"] = torch.stack([d.draw_shifts(b, gen) for _ in range(n_d + 1)])
+    return out
+
+
+def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
+    """Phase (j): the WaveGAN, conditional-WaveGAN and MelSpecGAN families at
+    their published widths through their CLIs on the card, on phase (i)'s 8
+    synthetic wavs (``tmp/wavs``), and the melspecgan → advoc pipeline
+    through phase (i)'s full-width advoc run (``tmp/hbm``). Returns the
+    numbers it printed."""
+    import math
+
+    from advoc_tpu_torch.data import audioio
+    from advoc_tpu_torch.data.synthetic import synthetic_speech
+    from advoc_tpu_torch.infer import Vocoder
+    from advoc_tpu_torch.models import melspecgan, wavegan
+    from advoc_tpu_torch.models.melspecgan import train_evaluate as mcli
+    from advoc_tpu_torch.models.wavegan import train_evaluate as wcli
+    from advoc_tpu_torch.ops import spectral as sp
+    from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel
+    from advoc_tpu_torch.train import gan
+    from advoc_tpu_torch.train.checkpoint import CheckpointManager, load_train_generator
+
+    t_start = time.perf_counter()
+    zeros = {name: 0 for name in counts()}
+    common = ["--data_dir", str(tmp / "wavs"), "--device", "cuda"]
+    out: dict = {}
+
+    def featurize_mel(batch):
+        return sp.waveform_to_r9y9_melspec(gan.as_waveform(batch))
+
+    # (name, CLI main, extra flags, config, G, D, step maker, CLI batch, steps,
+    # the step's input shape for a batch of b, its featurization)
+    specs = (
+        ("wavegan", wcli, [], wavegan.WaveGANConfig(), wavegan.WaveGANGenerator,
+         wavegan.WaveGANDiscriminator, gan.make_wavegan_train_step, 16, 6,
+         lambda c, b: (c.n_critic, b, c.slice_len), gan.as_waveform),
+        ("cond_wavegan", wcli, ["--conditional"], wavegan.CondWaveGANConfig(),
+         wavegan.CondWaveGANGenerator, wavegan.CondWaveGANDiscriminator,
+         gan.make_cond_wavegan_train_step, 16, 10, lambda c, b: (b, c.slice_len), featurize_mel),
+        ("melspecgan", mcli, [], melspecgan.MelSpecGANConfig(), melspecgan.MelSpecGANGenerator,
+         melspecgan.MelSpecGANDiscriminator, gan.make_melspecgan_train_step, 32, 6,
+         lambda c, b: (c.n_critic, b, c.n_frames * HOP), featurize_mel),
+    )
+    # A conditional-WaveGAN child run, killed by a watcher thread as soon as
+    # its first checkpoint (step 2) is written, and resumed below: started
+    # first, so that its start-up overlaps the first-step checks, which time
+    # nothing.
+    t0 = time.perf_counter()
+    cond_run = tmp / "cond_wavegan"
+    cond_args = ["--conditional", "--train_dir", str(cond_run), "--batch_size", "16", *common]
+    child_log = tmp / "cond_wavegan_child.log"
+    with open(child_log, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "advoc_tpu_torch.models.wavegan.train_evaluate",
+             "--mode", "train", *cond_args, "--max_steps", "100000", "--ckpt_every", "2",
+             "--log_every", "2"],
+            stdout=f, stderr=subprocess.STDOUT, cwd=pathlib.Path(__file__).resolve().parent)
+
+    def kill_at_checkpoint() -> None:
+        while (child.poll() is None and not (cond_run / "2" / "state.pt").exists()
+               and time.perf_counter() - t0 < 180):
+            time.sleep(0.05)
+        child.kill()
+
+    watcher = threading.Thread(target=kill_at_checkpoint, daemon=True)
+    watcher.start()
+    try:
+        # The card's first step against the CPU port's: the same weights and
+        # draws, batch 2, bf16. Losses are means, so rounding averages out;
+        # 2e-2 relative, absolute below 1 (a mean logit near 0 has no scale).
+        for name, _, _, cfg, G, D, make, _, _, shape, _ in specs:
+            t1 = time.perf_counter()
+            g_c, d_c = G(cfg), D(cfg)
+            gan.make_states(g_c, d_c, seed=1)
+            g_d, d_d = copy.deepcopy(g_c).to(dev), copy.deepcopy(d_c).to(dev)
+            n = 1 if name == "cond_wavegan" else cfg.n_critic
+            wav = torch.tensor(synthetic_speech(30, int(np.prod(shape(cfg, 2))))).reshape(
+                shape(cfg, 2))
+            draws = family_draws(name, cfg, d_c, n, 2)
+            metrics = {}
+            for where, g, d in (("cpu", g_c, d_c), ("cuda", g_d, d_d)):
+                gs = gan.TrainState(g, gan.adam()(g.parameters()))
+                ds = gan.TrainState(d, gan.adam()(d.parameters()))
+                metrics[where] = make(g, d, cfg)(
+                    gs, ds, wav.to(where), draws={k: v.to(where) for k, v in draws.items()})[2]
+            parity = {k: (float(metrics["cuda"][k]), float(metrics["cpu"][k]))
+                      for k in metrics["cpu"]}
+            for k, (a, b) in parity.items():
+                require(abs(a - b) <= 2e-2 * max(abs(b), 1.0), f"{name} first step {k}: card "
+                        f"{a} vs CPU {b}")
+            out[name] = {"parity": parity, "parity_s": time.perf_counter() - t1}
+            print(f"(j) {name} first step, batch 2, card vs CPU port: " + ", ".join(
+                f"{k} {a:.5f} vs {b:.5f}" for k, (a, b) in parity.items())
+                + f"; {out[name]['parity_s']:.1f} s")
+            del g_c, d_c, g_d, d_d
+        watcher.join()
+    finally:
+        child.kill()
+        child.wait()
+    mgr = CheckpointManager(cond_run, use_async=False)
+    killed_at = mgr.latest_step()
+    mgr.close()
+    require(killed_at is not None and 2 <= killed_at < 10,
+            f"cond_wavegan child killed at step {killed_at}: {child_log.read_text()[-2000:]}")
+    out["cond_wavegan"]["killed_at"] = killed_at
+    child_s = time.perf_counter() - t0
+    print(f"(j) the first-step checks and the conditional child up to its step-2 "
+          f"checkpoint: {child_s:.1f} s")
+
+    for name, cli, flags, cfg, G, D, make, batch_size, n_steps, shape, featurize in specs:
+        t0 = time.perf_counter()
+        run = tmp / name
+        args = [*flags, "--train_dir", str(run), "--batch_size", str(batch_size), *common]
+        extra = (bool(flags),) if cli is wcli else ()
+        g0, d0, _, _ = cli._models_and_states(cfg, 0, dev, *extra)  # the CLI's initialization
+        init = {k: {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+                for k, m in (("g", g0), ("d", d0))}
+        del g0, d0
+        # Under wgan-gp D's logit bias has a zero gradient (a critic's constant
+        # shift leaves the Wasserstein loss unchanged), in JAX too.
+        constant = ("logit.bias",) if cfg.gan_type == "wgan-gp" else ()
+        r = out[name]
+        zero_counts()
+        (gs, ds, step), text, rows = run_train_cli(cli.main, [
+            "--mode", "train", *args, "--max_steps", str(n_steps), "--ckpt_every",
+            str(n_steps), "--log_every", "2"])
+        torch.cuda.synchronize()
+        require(counts() == zeros, f"the {name} step runs no port kernel: {counts()}")
+        n_d = cfg.n_critic if name != "cond_wavegan" else 1
+        require(step == gs.step == n_steps and ds.step == n_d * n_steps,
+                f"{name} run ended at step {step} (G {gs.step}, D {ds.step})")
+        if "killed_at" in r:
+            require(f"resumed from step {r['killed_at']}" in text,
+                    f"{name} resume after the kill at {r['killed_at']}")
+        changed_and_finite(gs, init["g"], f"{name} G")
+        changed_and_finite(ds, init["d"], f"{name} D", constant)
+        r["steps_per_s"] = [rate for _, rate, _ in rows[1:]]
+        r["train_s"] = time.perf_counter() - t0
+        del gs, ds
+        print(f"(j) {name} train at {type(cfg).__name__}() batch {batch_size}"
+              + (f", a child killed after its checkpoint at step {r['killed_at']} and resumed"
+                 if "killed_at" in r else "")
+              + f", {n_steps} steps: every G and D tensor updated and finite"
+              + (" (D's logit bias not, its gradient 0 under wgan-gp)" if constant else "")
+              + f"; steps/s after the first window {r['steps_per_s']}; {r['train_s']:.1f} s")
+
+        # The step's split, a trace and the peak memory at the CLI's batch.
+        g, d = G(cfg).to(dev), D(cfg).to(dev)
+        gs, ds = gan.make_states(g, d, seed=2)
+        batch = torch.tensor(synthetic_speech(40, int(np.prod(shape(cfg, batch_size)))),
+                             device=dev).reshape(shape(cfg, batch_size))
+        step_fn = make(g, d, cfg)
+        r.update(step_split(step_fn, gs, ds, batch, featurize))
+        tr = r["trace"]
+        print(f"(j) {name} step at batch {batch_size} by CUDA events (median of 5, ms): "
+              f"{r['split_ms']}; peak memory {r['peak_gb']:.2f} GB; one traced step: wall "
+              f"{tr['wall_ms']:.2f} ms, kernels {tr['busy_ms']:.2f} ms, busy share "
+              + (f"{tr['busy_ms'] / tr['wall_ms']:.3f}" if tr["busy_ms"] > 0 else "not measured")
+              + f", {tr['launches']} launches")
+        del g, d, gs, ds, batch, step_fn
+
+        # eval --eval_once, and infer for the WaveGANs (MelSpecGAN's is the
+        # pipeline below).
+        seen = cli.main(["--mode", "eval", "--eval_once", *args])
+        require(seen == n_steps, f"{name} eval evaluated step {seen}")
+        if cli is wcli:
+            paths = cli.main(["--mode", "infer", *args])
+            ys = [torch.tensor(audioio.decode_audio(p)) for p in paths]
+            require(len(paths) == (1 if flags else 8) and all(
+                bool(torch.isfinite(y).all()) and float(y.abs().max()) <= 1.0 for y in ys),
+                f"{name} infer wrote {paths}")
+        r["s"] = time.perf_counter() - t0
+        print(f"(j) {name}: eval --eval_once at step {seen}"
+              + (f", infer {len(paths)} finite wav(s)" if cli is wcli else "")
+              + f"; {r['s']:.1f} s from the CLI's train run, {r['parity_s']:.1f} s of first-step "
+              "check before")
+
+    # The pipeline: MelSpecGAN samples 8 mels; the heuristic Vocoder (64-frame
+    # chunks) and phase (i)'s full-width advoc generator (256-frame chunks)
+    # vocode them, each through the tensor-core G-L kernel.
+    msg_args = ["--mode", "infer", "--train_dir", str(tmp / "melspecgan"), "--n_samples", "8",
+                "--vocode", "--device", "cuda"]
+    pipe = {}
+    for how, extra in (("vocode", []), ("advoc", ["--advoc_ckpt", str(tmp / "hbm")])):
+        zero_counts()
+        res = mcli.main([*msg_args, "--infer_dir", str(tmp / f"infer_{how}"), *extra])
+        torch.cuda.synchronize()
+        pipe[how] = {"launches": counts(), "mel_l1": res["mel_l1"]}
+        require(pipe[how]["launches"]["griffin_lim_tc"] == 2 * 30 + 1
+                and len(res["wavs"]) == 8, f"pipeline {how}: launches {counts()}")
+        require(all(math.isfinite(v) for v in res["mel_l1"]), f"pipeline {how} {res['mel_l1']}")
+    mels = torch.tensor(np.load(tmp / "infer_vocode" / "mels.npy"))
+    require(torch.equal(mels, torch.tensor(np.load(tmp / "infer_advoc" / "mels.npy"))),
+            "both pipeline runs sample the same mels")
+    advoc_gen, _ = load_train_generator(tmp / "hbm")
+    # The card against the CPU port on the same sampled mels, the CPU's G-L
+    # being B1's plain version at the card's split precision
+    # (phase_impl="kernel" on a CPU tensor): mel L1 within 10% either way;
+    # the full-width U-Net on the CPU on two of the eight. (B1 itself is held
+    # to its plain version at (8, 64) and (8, 256) in the kernel checks.)
+    for how, voc_cpu, voc_dev, k in (
+            ("vocode", Vocoder(chunk_frames=64, device="cpu", phase_impl="kernel"),
+             Vocoder(chunk_frames=64, device="cuda"), 8),
+            ("advoc", Vocoder(copy.deepcopy(advoc_gen), chunk_frames=advoc_gen.cfg.n_frames,
+                              device="cpu", phase_impl="kernel"),
+             Vocoder(advoc_gen, chunk_frames=advoc_gen.cfg.n_frames, device="cuda"), 2)):
+        ref = float(np.mean([mel_l1(voc_cpu(m), m) for m in mels[:k]]))
+        got = float(np.mean(pipe[how]["mel_l1"][:k]))
+        require(abs(got - ref) <= 0.1 * ref, f"pipeline {how}: card mel L1 {got} vs CPU {ref}")
+        pipe[how].update(cpu_mel_l1=ref, card_mel_l1=got,
+                         ms=cuda_ms(lambda: voc_dev(mels.to(dev))))
+        pipe[how]["x_real_time"] = 8 * 64 * HOP / SR / (pipe[how]["ms"] / 1e3)
+        print(f"(j) melspecgan --vocode {how}: B1 launches {pipe[how]['launches']}; card mel L1 "
+              f"{got:.5f} (first {k}) vs CPU port {ref:.5f}; vocoding 8 × 64 frames "
+              f"{pipe[how]['ms']:.2f} ms = {pipe[how]['x_real_time']:.1f}× real time")
+    # B1 at the pipeline's two shapes.
+    for how, t in (("vocode", 64), ("advoc", 256)):
+        mag = sp.r9y9_melspec_to_magspec(mels.to(dev))
+        if t > 64:
+            mag = torch.nn.functional.pad(mag, (0, 0, 0, t - 64))
+        mag = mag[..., :512].contiguous()
+        pipe[how]["b1_ms"] = cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99,
+                                                                precision="default"))
+        pipe[how]["b1_bound_ms"], _ = bound(gl_flops(8, t, 512, 30), gl_bytes(8, t, 512))
+        print(f"(j) B1 tensor-core kernel at the pipeline's shape (8, {t}, 512), 30 "
+              f"iterations: {pipe[how]['b1_ms']:.3f} ms, bound {pipe[how]['b1_bound_ms']:.4f} ms")
+    out["pipeline"] = pipe
+    out["phase_s"] = time.perf_counter() - t_start
+    print(f"phase (j) took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -917,10 +1228,11 @@ def main() -> int:
     rng = np.random.default_rng(0)
     main_errs: dict[str, list[float]] = {"highest": [], "default": []}
     # B=8 at 256, 512, 768 and 1024 frames: the shapes vocode_cli's --batch 8
-    # groups give the kernel in the serving phase (d).
+    # groups give the kernel in the serving phase (d); B=8 at 64 frames, a
+    # partial tile: the heuristic melspecgan --vocode pipeline's in phase (j).
     cases = [(2, 256, False), (2, 1024, False), (2, 256, True), (1, 1024, False),
-             (128, 256, False), (8, 256, False), (8, 512, False), (8, 768, False),
-             (8, 1024, False)]
+             (128, 256, False), (8, 64, False), (8, 256, False), (8, 512, False),
+             (8, 768, False), (8, 1024, False)]
     for b, t, with_init in cases:
         mel = mels(b, t, seed=t + b)
         mag = sp.r9y9_melspec_to_magspec(mel)[..., :512].contiguous()
@@ -1286,7 +1598,9 @@ def main() -> int:
     # -- 6. The serving path -----------------------------------------------------
     served = serving(dev, gen, voc, mels, mel_l1, zero_counts, counts)
     lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts)
-    trained = training(dev, mel_l1, zero_counts, counts)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        trained = training(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
+        fam = families(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
@@ -1306,6 +1620,8 @@ def main() -> int:
         "launches_streaming": served["stream_launches"]["griffin_lim"],
         "launches_train_eval": trained["eval_launches"]["griffin_lim"],
         "launches_train_infer": trained["infer_launches"]["griffin_lim"],
+        "launches_melspecgan_vocode": fam["pipeline"]["vocode"]["launches"]["griffin_lim"],
+        "launches_melspecgan_advoc": fam["pipeline"]["advoc"]["launches"]["griffin_lim"],
         "checks": "pass",
         "max_abs_err": max(main_errs["highest"]),
         "ms": gl_ms,
@@ -1333,6 +1649,12 @@ def main() -> int:
         "launches_streaming": served["stream_launches"]["griffin_lim_tc"],
         "launches_train_eval": trained["eval_launches"]["griffin_lim_tc"],
         "launches_train_infer": trained["infer_launches"]["griffin_lim_tc"],
+        "launches_melspecgan_vocode": fam["pipeline"]["vocode"]["launches"]["griffin_lim_tc"],
+        "launches_melspecgan_advoc": fam["pipeline"]["advoc"]["launches"]["griffin_lim_tc"],
+        "ms_b8_t64": fam["pipeline"]["vocode"]["b1_ms"],
+        "bound_ms_b8_t64": fam["pipeline"]["vocode"]["b1_bound_ms"],
+        "ms_b8_t256": fam["pipeline"]["advoc"]["b1_ms"],
+        "bound_ms_b8_t256": fam["pipeline"]["advoc"]["b1_bound_ms"],
         "checks": "pass",
         "max_abs_err": max(main_errs["default"]),
         "ms": gl_tc_ms,

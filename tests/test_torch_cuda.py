@@ -303,6 +303,53 @@ def test_train_step_on_the_card(dev):
     assert (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches) == launches
 
 
+def test_kernels_without_a_backward_refuse_gradients(dev):
+    """B3 and the fast-G-L kernels have no backward: under grad, on an input
+    that requires it, both wrappers raise on the card (the gradient would
+    stop silently); under no_grad, or on an input without it, they run."""
+    wav = torch.tensor(synthetic_speech(0, 64 * 256), device=dev)[None].requires_grad_(True)
+    mag = torch.rand((1, 16, 513), device=dev, requires_grad=True)
+    for fn in (lambda: tfeat.fused_melspec_kernel(wav), lambda: tgl.griffin_lim_kernel(mag, 2),
+               lambda: tgl.griffin_lim_kernel(mag, 2, precision="default")):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn()
+        with torch.no_grad():
+            assert bool(torch.isfinite(fn()).all())
+    assert tfeat.fused_melspec_kernel(wav.detach()).shape == (1, 64, 80)
+
+
+@pytest.mark.parametrize("family", ["wavegan", "cond_wavegan", "melspecgan"])
+def test_family_steps_on_the_card(dev, family):
+    """One bf16 step of each family at a small width (wgan-gp: cuDNN's
+    double backward in bf16): finite metrics on the device, every G tensor
+    updated, no port kernel launched (the conditional step featurizes and
+    differentiates the STFT path)."""
+    from advoc_tpu_torch.models import melspecgan, wavegan
+    from advoc_tpu_torch.train import gan
+
+    if family == "melspecgan":
+        cfg = melspecgan.MelSpecGANConfig(latent_dim=16, width=16, n_critic=2)
+        g, d = melspecgan.MelSpecGANGenerator(cfg), melspecgan.MelSpecGANDiscriminator(cfg)
+        make, shape = gan.make_melspecgan_train_step, (2, 2, 64 * 256)
+    elif family == "wavegan":
+        cfg = wavegan.WaveGANConfig(slice_len=1024, latent_dim=32, width=16, n_critic=2)
+        g, d = wavegan.WaveGANGenerator(cfg), wavegan.WaveGANDiscriminator(cfg)
+        make, shape = gan.make_wavegan_train_step, (2, 2, 1024)
+    else:
+        cfg = wavegan.CondWaveGANConfig(n_frames=16, width=8, gan_type="wgan-gp")
+        g, d = wavegan.CondWaveGANGenerator(cfg), wavegan.CondWaveGANDiscriminator(cfg)
+        make, shape = gan.make_cond_wavegan_train_step, (2, 16 * 256)
+    g, d = g.to(dev), d.to(dev)
+    gs, ds = gan.make_states(g, d, seed=0)
+    before = {n: p.detach().clone() for n, p in g.named_parameters()}
+    launches = (tgl.griffin_lim_kernel.tc_launches, tfeat.fused_melspec_kernel.launches)
+    wav = torch.tensor(synthetic_speech(1, int(np.prod(shape))), device=dev).reshape(shape)
+    _, _, m = make(g, d, cfg)(gs, ds, wav, torch.Generator(device=dev).manual_seed(0))
+    assert all(v.is_cuda and bool(torch.isfinite(v)) for v in m.values())
+    assert all(not torch.equal(p, before[n]) for n, p in g.named_parameters())
+    assert (tgl.griffin_lim_kernel.tc_launches, tfeat.fused_melspec_kernel.launches) == launches
+
+
 def test_packed_up_kernel_rejects_what_it_cannot_take(dev):
     x = torch.zeros((1, 16, 8, 12), dtype=torch.bfloat16, device=dev)
     wt, bias = torch.zeros((4, 4, 12, 8), device=dev), torch.zeros(8, device=dev)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from advoc_tpu.ops.pallas.packed_up import packed_up as j_packed_up
-from advoc_tpu_torch.models.advoc.convert import _to_torch
+from advoc_tpu_torch.models.convert import to_torch_layout as _to_torch
 from advoc_tpu_torch.ops.kernels import packed_up as tpu
 
 

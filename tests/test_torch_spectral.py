@@ -101,6 +101,28 @@ class TestMel:
         with pytest.raises(ValueError, match="kernel"):
             tsp.waveform_to_r9y9_melspec(torch.tensor(wav), TP, impl="pallas")
 
+    @pytest.mark.parametrize("impl", ["xla", "kernel"])
+    def test_differentiable_after_an_inference_mode_call(self, impl):
+        """The device constants are cached on first use: built under the
+        Vocoder's inference_mode they would be inference tensors, and a later
+        loss through the same featurizer (the conditional WaveGAN's mel L1)
+        could not backpropagate. After such a call the STFT path's gradient
+        matches JAX's within 1e-4 of the largest; the kernel's plain version
+        (on the CPU; JAX's Pallas kernel has no gradient) gives a finite one."""
+        # Params of their own, so the constants are built here, first.
+        q = dataclasses.replace(TP, ref_level_db=19.0 if impl == "xla" else 18.0)
+        x = loader.synthetic_speech(3, 16 * 256)[None]
+        with torch.inference_mode():
+            tsp.waveform_to_r9y9_melspec(torch.tensor(x), q, impl=impl)
+        xt = torch.tensor(x, requires_grad=True)
+        (got,) = torch.autograd.grad(tsp.waveform_to_r9y9_melspec(xt, q, impl=impl).mean(), xt)
+        assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+        if impl == "xla":
+            jq = dataclasses.replace(P, ref_level_db=q.ref_level_db)
+            want = np.asarray(jax.grad(lambda w: jsp.waveform_to_r9y9_melspec(w, jq).mean())(
+                jnp.asarray(x)))
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
+
     def test_db_helpers_match_jax(self):
         x = np.random.default_rng(0).uniform(-1e-6, 3.0, (7, 80)).astype(np.float32)
         for jf, tf in ((jsp.amp_to_db, tsp.amp_to_db), (jsp.normalize_db, tsp.normalize_db),
