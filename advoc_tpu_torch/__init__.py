@@ -9,6 +9,9 @@ CLI is ``python -m advoc_tpu_torch.infer.vocode_cli``. The advoc GAN trains
 with ``python -m advoc_tpu_torch.models.advoc.train_evaluate``; the WaveGAN
 (and its mel-conditioned variant) and MelSpecGAN families with
 ``python -m advoc_tpu_torch.models.{wavegan,melspecgan}.train_evaluate``,
-whose melspecgan infer vocodes its samples through an advoc run. The
-package imports torch, numpy and scipy only, never JAX or ``advoc_tpu``.
+whose melspecgan infer vocodes its samples through an advoc run. Each
+CLI trains data-parallel over ``--n_devices`` ranks, and both vocoders
+split their batch over a device mesh (:mod:`advoc_tpu_torch.parallel`).
+The package imports torch, numpy and scipy only, never JAX or
+``advoc_tpu``.
 """

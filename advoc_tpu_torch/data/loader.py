@@ -91,8 +91,14 @@ def decode_extract_and_batch(
     drop_remainder: bool = True,
     sample_rate: int | None = None,
     out_dtype: str = "float32",
+    rows: Sequence[int] | None = None,
 ) -> Iterator[np.ndarray]:
     """Yield (batch_size, slice_len) waveform batches (numpy).
+
+    ``rows``: decode only these rows of each batch, in this order, and
+    yield (len(rows), slice_len): a data-parallel rank's part of the global
+    batch. The crops are drawn as without it (the same RNG call sequence on
+    every rank), so the ranks' rows together are the global batch.
 
     ``out_dtype``: "float32", "int16" (round(x·32768), lossless for PCM16
     sources and half the host→device bytes) or "mulaw8"
@@ -113,6 +119,8 @@ def decode_extract_and_batch(
     _check_rates(fps, meta, sample_rate)
     if out_dtype not in ("float32", "int16", "mulaw8"):
         raise ValueError(f"out_dtype must be float32, int16 or mulaw8, got {out_dtype!r}")
+    if rows is not None and not all(0 <= r < batch_size for r in rows):
+        raise ValueError(f"rows {list(rows)} are not rows of a batch of {batch_size}")
 
     def decode_one(args) -> np.ndarray:
         fp, start = args
@@ -155,6 +163,12 @@ def decode_extract_and_batch(
 
     def producer():
         pool = ThreadPoolExecutor(max_workers=num_workers)
+
+        def decode(batch: list) -> np.ndarray:
+            if rows is not None:
+                batch = [batch[r] for r in rows if r < len(batch)]
+            return np.stack(list(pool.map(decode_one, batch)))
+
         try:
             batch: list = []
             for item in gen_indices():
@@ -162,11 +176,11 @@ def decode_extract_and_batch(
                     return
                 batch.append(item)
                 if len(batch) == batch_size:
-                    if not put_or_stop(np.stack(list(pool.map(decode_one, batch)))):
+                    if not put_or_stop(decode(batch)):
                         return
                     batch = []
             if batch and not drop_remainder:
-                put_or_stop(np.stack(list(pool.map(decode_one, batch))))
+                put_or_stop(decode(batch))
         except BaseException as exc:  # noqa: BLE001 — re-raised in the consumer
             put_or_stop(_ProducerError(exc))
         finally:
@@ -252,7 +266,10 @@ class DeviceCorpus:
 def hbm_data_step(step_fn, corpus: DeviceCorpus):
     """A ``(gstate, dstate, batch, generator)`` step taking crop starts in
     place of the batch: ``step(gstate, dstate, starts, generator)`` gathers
-    the crops on the device and runs ``step_fn`` on them."""
+    the crops on the device and runs ``step_fn`` on them. Data-parallel,
+    every rank stages the whole corpus and draws the global starts from
+    the shared seed; ``train.gan.data_parallel`` around this step cuts them
+    to the rank's rows before the gather."""
 
     def step(gstate, dstate, starts, generator=None):
         return step_fn(gstate, dstate, corpus.gather(starts), generator)

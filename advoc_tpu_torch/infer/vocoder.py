@@ -1,4 +1,4 @@
-"""Vocoders: mel in, waveform out, on one device.
+"""Vocoders: mel in, waveform out, on one device or over a mesh.
 
 The port of ``advoc_tpu.infer.vocoder``. :class:`Vocoder` is the offline
 path. Per call: the pinv heuristic estimate, conversion to normalized dB,
@@ -10,6 +10,9 @@ the waveform is cropped back to the true length, as in the JAX package.
 :meth:`Vocoder.vocode_longform` runs any length through one fixed-tile
 :class:`StreamingVocoder`, the stateful chunk-by-chunk serving engine, whose
 phase engines are G-L with a crossfade and two kinds of streaming LWS.
+Both take a ('data',) :class:`~advoc_tpu_torch.parallel.mesh.Mesh`
+(``mesh=``): the batch, or the streams, split over its devices, each
+shard run on its device's replica of the generator.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from advoc_tpu_torch.ops import spectral
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
+from advoc_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 Tensor = torch.Tensor
 
@@ -84,6 +88,11 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (data_mesh), got {type(mesh).__name__}")
+
+
 def _bmask(active: Tensor, like: Tensor) -> Tensor:
     """(n,) bool mask reshaped to broadcast over ``like``'s trailing dims."""
     return active.reshape(active.shape + (1,) * (like.ndim - 1))
@@ -117,6 +126,14 @@ class Vocoder:
     :func:`~advoc_tpu_torch.ops.spectral.pghi_init_phase` with
     ``pghi_coef``, "zero" from zero phase.
     ``device`` defaults to "cuda" and raises if no card is present.
+
+    ``mesh`` (a :class:`~advoc_tpu_torch.parallel.mesh.Mesh`): each call
+    pads the batch to a multiple of the mesh, runs one contiguous shard of
+    it on each mesh device (the generator replicated there, G-L on that
+    device, the kernel included), gathers the waveforms on ``device``
+    (default: the mesh's first device) and crops the padding. The shards'
+    launches are enqueued one after another with no wait between them, so
+    the devices run at once.
     """
 
     def __init__(
@@ -135,8 +152,7 @@ class Vocoder:
         phase_init: str = "zero",
         pghi_coef: float = 0.0,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh (data-parallel) is not ported yet (ROADMAP.md)")
+        _check_mesh(mesh)
         if phase_init not in ("zero", "pghi"):
             raise ValueError(f"unknown phase_init {phase_init!r}")
         if phase_method not in ("lws", "gl", "lws_exact"):
@@ -145,8 +161,11 @@ class Vocoder:
             raise ValueError(f"unknown phase_impl {phase_impl!r}")
         if gl_precision not in (None, "default", "highest"):
             raise ValueError(f"unknown gl_precision {gl_precision!r}")
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = _resolve_device(device)
         self.generator = generator.to(self.device).eval() if generator is not None else None
+        self.mesh = mesh
         self.params = params
         self.chunk = chunk_frames
         self.overlap = overlap_frames
@@ -175,14 +194,15 @@ class Vocoder:
         c = self.chunk
         return max(c, ((t + c - 1) // c) * c)
 
-    def _run(self, mel: Tensor) -> Tensor:
-        """(B, T, M) bucketed mel → (B, T·hop) waveform."""
+    def _run(self, mel: Tensor, generator) -> Tensor:
+        """(B, T, M) bucketed mel → (B, T·hop) waveform, on mel's device with
+        ``generator`` (the Vocoder's, or its replica there)."""
         p = self.params
         t_frames = mel.shape[1]
         est = spectral.r9y9_melspec_to_magspec(mel, p)
         est_norm = spectral.normalize_db(spectral.amp_to_db(est, p) - p.ref_level_db, p)
-        if self.generator is not None:
-            apply = chunked_generator_apply(self.generator, self.chunk, self.overlap, t_frames)
+        if generator is not None:
+            apply = chunked_generator_apply(generator, self.chunk, self.overlap, t_frames)
             mag_norm = apply(est_norm)
         else:
             mag_norm = est_norm
@@ -221,8 +241,19 @@ class Vocoder:
         tb = self.bucket(t)
         if tb != t:  # silence-level mel (0.0 is the dB floor after normalize)
             mel = torch.nn.functional.pad(mel, (0, 0, 0, tb - t))
+        length = t * self.params.hop_length
         with torch.inference_mode():
-            wav = self._run(mel)[:, : t * self.params.hop_length]
+            if self.mesh is None:
+                wav = self._run(mel, self.generator)[:, :length]
+            else:
+                b, n = mel.shape[0], self.mesh.size
+                if b % n:  # silent rows to a whole shard each, cropped below
+                    mel = torch.nn.functional.pad(mel, (0, 0, 0, 0, 0, n - b % n))
+                gens = (replicate(self.generator, self.mesh) if self.generator is not None
+                        else [None] * n)
+                parts = [self._run(m, g)[:, :length]
+                         for m, g in zip(shard_batch(mel, self.mesh), gens, strict=True)]
+                wav = torch.cat([x.to(self.device, non_blocking=True) for x in parts])[:b]
         return wav[0] if squeeze else wav
 
     def vocode_longform(
@@ -334,8 +365,16 @@ class StreamingVocoder:
     bit-exactly. ``emit_dtype="int16"`` converts on the device with
     ``save_as_wav``'s convention, ``round(clip(x)·32767)``;
     ``mel_dtype="float16"`` casts the input on the host. ``device``
-    defaults to "cuda" and raises if no card is present. ``mesh`` is not
-    ported yet (ROADMAP.md queue A) and raises ``NotImplementedError``.
+    defaults to "cuda" and raises if no card is present.
+
+    ``mesh`` (a :class:`~advoc_tpu_torch.parallel.mesh.Mesh`): the streams
+    split over its devices, ``n_streams`` / mesh size rows each (it must
+    divide). Each device runs an engine of its rows with its replica of
+    the generator (a module; any other callable only where the mesh has
+    one device) and holds their carries between pushes; a push or flush
+    runs every shard's engine, then gathers the emits on ``device``
+    (default: the mesh's first device). Masks and ``reset`` work as
+    without a mesh.
     """
 
     def __init__(
@@ -359,8 +398,12 @@ class StreamingVocoder:
         gl_precision: str | None = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh (data-parallel) is not ported yet (ROADMAP.md)")
+        shard_kw = {k: v for k, v in locals().items()
+                    if k not in ("self", "generator", "n_streams", "mesh", "device")}
+        _check_mesh(mesh)
+        if mesh is not None and n_streams % mesh.size:
+            raise ValueError(f"n_streams={n_streams} must be divisible by the mesh size "
+                             f"{mesh.size}")
         if emit_dtype not in ("float32", "int16"):
             raise ValueError(f"unknown emit_dtype {emit_dtype!r}")
         if mel_dtype not in ("float32", "float16"):
@@ -379,10 +422,25 @@ class StreamingVocoder:
             )
         if gl_precision not in (None, "default", "highest"):
             raise ValueError(f"unknown gl_precision {gl_precision!r}")
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = _resolve_device(device)
         if isinstance(generator, torch.nn.Module):
             generator = generator.to(self.device).eval()
         self.generator = generator
+        # The engines of a mesh's shards, one per device: they hold the carries.
+        self._shards: list[StreamingVocoder] = []
+        if mesh is not None:
+            if generator is None or isinstance(generator, torch.nn.Module):
+                gens = replicate(generator, mesh) if generator is not None else [None] * mesh.size
+            elif len(set(mesh.devices)) == 1:
+                gens = [generator] * mesh.size
+            else:
+                raise TypeError("a mesh over several devices replicates the generator: pass "
+                                "an nn.Module, not another callable")
+            self._shards = [StreamingVocoder(g, n_streams=n_streams // mesh.size, device=dev,
+                                             **shard_kw)
+                            for g, dev in zip(gens, mesh.devices, strict=True)]
         self.params = params
         self.chunk = chunk_frames
         self.overlap = overlap_frames
@@ -549,6 +607,13 @@ class StreamingVocoder:
         utterance: every carry of that row to a fresh stream's (gl: tail to
         silence, phase to the zero-phase start; lws: zeros, so the next
         emissions start with the preroll again)."""
+        if self._shards:
+            k = self.n_streams // len(self._shards)
+            for i, sv in enumerate(self._shards):
+                if stream is None or stream // k == i:
+                    sv.reset(None if stream is None else stream % k)
+            return
+
         def put(x: Tensor, value: float) -> Tensor:
             # Out of place: the old carry may be an inference tensor, or
             # still read by a push in flight.
@@ -605,13 +670,28 @@ class StreamingVocoder:
             self._state_magtail, self._state_wav = carries[:2]
             self._state_phase = tuple(carries[2:])
 
-    def _active(self, active) -> Tensor:
+    def _active_np(self, active) -> np.ndarray:
         if active is None:
             active = np.ones(self.n_streams, bool)
         active = np.asarray(active, dtype=bool)
         if active.shape != (self.n_streams,):
             raise ValueError(f"active must be ({self.n_streams},), got {active.shape}")
-        return torch.from_numpy(active).to(self.device)
+        return active
+
+    def _active(self, active) -> Tensor:
+        return torch.from_numpy(self._active_np(active)).to(self.device)
+
+    def _sharded(self, method: str, squeeze: bool, readback: bool, active, *mel):
+        """``method`` ("push" or "flush") of every shard's engine on its rows
+        (of ``active`` and of the mel chunk, if given), the emits gathered
+        on ``device``."""
+        active = self._active_np(active)
+        k = self.n_streams // len(self._shards)
+        emits = [getattr(sv, method)(*(m[i * k : (i + 1) * k] for m in mel),
+                                     active=active[i * k : (i + 1) * k], readback=False)
+                 for i, sv in enumerate(self._shards)]
+        emit = torch.cat([e.reshape(k, -1).to(self.device, non_blocking=True) for e in emits])
+        return self._out(emit, squeeze, readback)
 
     @staticmethod
     def _out(emit: Tensor, squeeze: bool, readback: bool):
@@ -640,6 +720,8 @@ class StreamingVocoder:
         if mel_chunk.shape[:2] != (self.n_streams, self.chunk):
             raise ValueError(f"mel chunk {mel_chunk.shape} does not fit "
                              f"({self.n_streams}, {self.chunk}, n_mels)")
+        if self._shards:
+            return self._sharded("push", squeeze, readback, active, mel_chunk)
         mel = torch.tensor(mel_chunk, device=self.device).to(torch.float32)
         run = self._lws_run if self._lws_engine else self._run
         with torch.no_grad():
@@ -656,6 +738,8 @@ class StreamingVocoder:
         T·hop + ``flush_samples`` samples: drop the first ``flush_samples``
         for exactly T·hop. Returns (flush_samples,) when ``n_streams == 1``,
         else (n_streams, flush_samples); ``readback`` as in :meth:`push`."""
+        if self._shards:
+            return self._sharded("flush", self.n_streams == 1, readback, active)
         active_t = self._active(active)
         if self._lws_engine:
             with torch.no_grad():

@@ -17,9 +17,15 @@ and gathers random crops on the device (the host sends 4 bytes a clip a
 step); ``wire`` streams host-decoded batches (``--h2d_dtype``) copied
 ahead from pinned memory; ``auto`` takes hbm when the corpus fits
 ``--hbm_budget_mb`` (default half the device's memory, as the JAX CLI's
-8 GB of a 16 GB TPU). Training is single-process on one device:
-``--n_devices`` > 1 and multi-process runs raise (ROADMAP.md queue A
-item 4, DDP).
+8 GB of a 16 GB TPU).
+
+Training is data-parallel over ``--n_devices`` ranks, one process a card
+(default: every visible card that divides ``--batch_size``; one card is
+one process), spawned by the CLI; ``--device cpu --n_devices N`` runs N
+gloo ranks on the CPU; under torchrun each process joins as its rank.
+``--batch_size`` is the global batch. Each rank stages the whole corpus
+(hbm, refused when the ranks span hosts) or decodes only its rows of each
+batch (wire). ``eval`` and ``infer`` run as one process.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count: only 1 is ported (ROADMAP.md queue A)")
+                   help="data-parallel device count (default: all that divide the batch)")
     p.add_argument("--eval_once", action="store_true")
     p.add_argument("--eval_timeout_s", type=float, default=3600.0,
                    help="eval mode: exit after this long without a new checkpoint")
@@ -86,16 +92,16 @@ def make_config(args):
 def _device(args) -> torch.device:
     from advoc_tpu_torch.train.harness import train_device
 
-    return train_device(args.device, args.n_devices)
+    return train_device(args.device)
 
 
-def _models_and_states(cfg, seed: int, device: torch.device):
+def _models_and_states(cfg, seed: int, device: torch.device, group=None):
     from advoc_tpu_torch.models.advoc import AdvocGenerator, PatchDiscriminator
     from advoc_tpu_torch.train import gan
 
     g = AdvocGenerator(cfg).to(device)
     d = PatchDiscriminator(cfg).to(device)
-    gstate, dstate = gan.make_states(g, d, seed=seed)
+    gstate, dstate = gan.make_states(g, d, seed=seed, group=group)
     return g, d, gstate, dstate
 
 
@@ -108,10 +114,21 @@ def _hbm_budget_bytes(args, device: torch.device) -> int:
 
 
 def train(args):
-    """Returns the train loop's (gstate, dstate, final_step)."""
+    """Returns the train loop's (gstate, dstate, final_step); with spawned
+    data-parallel ranks, each rank's (gstate.step, dstate.step,
+    final_step) (``harness.launch_training``)."""
+    from advoc_tpu_torch.train import harness
+
+    return harness.launch_training(_train, args)
+
+
+def _train(args, group):
+    """One rank's training (``group``: its data-parallel process group, or
+    None alone)."""
     from advoc_tpu_torch.data import loader
     from advoc_tpu_torch.data.audioio import wav_num_frames
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
+    from advoc_tpu_torch.parallel import distributed
     from advoc_tpu_torch.train import gan, harness
     from advoc_tpu_torch.utils import ensure_dataset
 
@@ -119,38 +136,51 @@ def train(args):
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     cfg = make_config(args)
-    g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev)
+    g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev, group)
     n_params = sum(p.numel() for p in g.parameters())
-    print(f"[train] advoc {args.model_size}: G={n_params / 1e6:.2f}M params on {dev}", flush=True)
+    n_ranks, main = distributed.world_size(), distributed.is_main()
+    if main:
+        print(f"[train] advoc {args.model_size}: G={n_params / 1e6:.2f}M params on {dev}"
+              + (f", {n_ranks} data-parallel ranks" if n_ranks > 1 else ""), flush=True)
     step = gan.make_advoc_train_step(g, d, cfg, P)
 
-    fps = ensure_dataset(args.data_dir, f"{args.train_dir}/synthetic_data")
+    fps = distributed.main_first(ensure_dataset, args.data_dir,
+                                 f"{args.train_dir}/synthetic_data")
     slice_len = cfg.n_frames * P.hop_length
     placement = args.data_placement
     if placement != "wire":
         est_bytes = sum(max(wav_num_frames(fp)[0], slice_len) * 2 for fp in fps)
         budget = _hbm_budget_bytes(args, dev)
-        fits = est_bytes <= budget
+        multi_host = distributed.spans_hosts()
+        fits = est_bytes <= budget and not multi_host
         if placement == "hbm" and not fits:
             raise ValueError(
-                f"--data_placement hbm: the corpus is {est_bytes / 2**20:.0f} MB, over the "
-                f"{budget / 2**20:.0f} MB budget; use wire or raise --hbm_budget_mb")
+                f"--data_placement hbm: the corpus is {est_bytes / 2**20:.0f} MB (budget "
+                f"{budget / 2**20:.0f} MB) or the run spans hosts; use wire or raise "
+                "--hbm_budget_mb")
         placement = "hbm" if fits else "wire"
-        if args.data_placement == "auto":
-            why = "fits" if fits else f"{est_bytes / 2**20:.0f} MB > {budget / 2**20:.0f} MB budget"
+        if args.data_placement == "auto" and main:
+            why = ("fits" if fits else "the run spans hosts" if multi_host
+                   else f"{est_bytes / 2**20:.0f} MB > {budget / 2**20:.0f} MB budget")
             print(f"[train] data_placement auto → {placement} ({why})", flush=True)
 
     if placement == "hbm":
+        # Every rank stages the whole corpus and draws the global starts;
+        # data_parallel cuts them to the rank's rows.
         corpus = loader.DeviceCorpus(fps, slice_len, sample_rate=P.sample_rate, device=dev)
-        print(f"[train] corpus staged in device memory: {len(fps)} files, "
-              f"{corpus.nbytes / 2**20:.0f} MB int16", flush=True)
+        if main:
+            print(f"[train] corpus staged in device memory: {len(fps)} files, "
+                  f"{corpus.nbytes / 2**20:.0f} MB int16", flush=True)
         step = loader.hbm_data_step(step, corpus)
         it = corpus.starts(args.batch_size, seed=args.seed)
+        step = gan.data_parallel(step)
     else:
-        it = loader.decode_extract_and_batch(
+        it = loader.decode_extract_and_batch(  # each rank decodes only its rows
             fps, batch_size=args.batch_size, slice_len=slice_len, seed=args.seed,
-            sample_rate=P.sample_rate, out_dtype=args.h2d_dtype)
+            sample_rate=P.sample_rate, out_dtype=args.h2d_dtype,
+            rows=harness.rank_rows(args.batch_size))
         it = loader.device_prefetch(it, dev, depth=2)
+        step = gan.data_parallel(step, batch_axis=None)
     return harness.train_loop(
         step, gstate, dstate, it, args.train_dir, max_steps=args.max_steps,
         ckpt_every=args.ckpt_every, log_every=args.log_every, seed=args.seed,

@@ -23,8 +23,10 @@ mel against its sampled mel. eval scores the samples' distribution
 The argparse surface of ``advoc_tpu.models.melspecgan.train_evaluate`` plus
 ``--device`` (default cuda; ``--device cpu`` runs on the CPU). Latents come
 from ``torch.Generator``\\ s, so samples are repeatable but are not the JAX
-CLI's. ``--n_devices`` > 1 and multi-process runs raise (ROADMAP.md queue A
-item 4, DDP).
+CLI's. Training is data-parallel over ``--n_devices`` ranks, as the advoc
+CLI's (``harness.launch_training``): ``--batch_size`` is the global batch,
+and each rank decodes its rows of each critic's batch. ``eval`` and
+``infer`` run as one process.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=20)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count: only 1 is ported (ROADMAP.md queue A)")
+                   help="data-parallel device count (default: all that divide the batch)")
     p.add_argument("--n_samples", type=int, default=8)
     p.add_argument("--eval_once", action="store_true")
     p.add_argument("--vocode", action="store_true",
@@ -86,7 +88,7 @@ def make_config(args):
     return apply_overrides(MelSpecGANConfig(), args.model_overrides)
 
 
-def _models_and_states(cfg, seed: int, device):
+def _models_and_states(cfg, seed: int, device, group=None):
     """The JAX CLI's models and Adams, (1e-4, 0.5, 0.9) for both."""
     from advoc_tpu_torch.models.melspecgan import MelSpecGANDiscriminator, MelSpecGANGenerator
     from advoc_tpu_torch.train import gan
@@ -94,31 +96,49 @@ def _models_and_states(cfg, seed: int, device):
     g = MelSpecGANGenerator(cfg).to(device)
     d = MelSpecGANDiscriminator(cfg).to(device)
     gstate, dstate = gan.make_states(g, d, seed=seed, g_tx=gan.adam(1e-4, 0.5, 0.9),
-                                     d_tx=gan.adam(1e-4, 0.5, 0.9))
+                                     d_tx=gan.adam(1e-4, 0.5, 0.9), group=group)
     return g, d, gstate, dstate
 
 
 def train(args):
-    """Returns the train loop's (gstate, dstate, final_step)."""
+    """Returns the train loop's (gstate, dstate, final_step); with spawned
+    data-parallel ranks, each rank's (gstate.step, dstate.step,
+    final_step) (``harness.launch_training``)."""
+    from advoc_tpu_torch.train import harness
+
+    return harness.launch_training(_train, args)
+
+
+def _train(args, group):
+    """One rank's training (``group``: its data-parallel process group, or
+    None alone)."""
     from advoc_tpu_torch.data import loader
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
+    from advoc_tpu_torch.parallel import distributed
     from advoc_tpu_torch.train import gan, harness
     from advoc_tpu_torch.utils import ensure_dataset
 
-    dev = harness.train_device(args.device, args.n_devices)
+    dev = harness.train_device(args.device)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     cfg = make_config(args)
-    g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev)
-    print(f"[train] melspecgan on {dev}, n_critic={cfg.n_critic}", flush=True)
+    g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev, group)
+    ranks = distributed.world_size()
+    if distributed.is_main():
+        print(f"[train] melspecgan on {dev}"
+              + (f", {ranks} data-parallel ranks" if ranks > 1 else "")
+              + f", n_critic={cfg.n_critic}", flush=True)
     step = gan.make_melspecgan_train_step(g, d, cfg, P)
-    fps = ensure_dataset(args.data_dir, f"{args.train_dir}/synthetic_data")
+    step = gan.data_parallel(step, batch_axis=None)
+    fps = distributed.main_first(ensure_dataset, args.data_dir,
+                                 f"{args.train_dir}/synthetic_data")
     slice_len = cfg.n_frames * P.hop_length
-    flat = loader.decode_extract_and_batch(
+    flat = loader.decode_extract_and_batch(  # each rank decodes only its rows of each batch
         fps, batch_size=args.batch_size * cfg.n_critic, slice_len=slice_len, seed=args.seed,
-        sample_rate=P.sample_rate, out_dtype=args.h2d_dtype)
-    # Each (n_critic·B, L) batch as (n_critic, B, L): one per critic.
-    it = (b.reshape(cfg.n_critic, args.batch_size, slice_len) for b in flat)
+        sample_rate=P.sample_rate, out_dtype=args.h2d_dtype,
+        rows=harness.rank_rows(args.batch_size, cfg.n_critic))
+    # Each (n_critic·b, L) batch as (n_critic, b, L): one per critic.
+    it = (x.reshape(cfg.n_critic, args.batch_size // ranks, slice_len) for x in flat)
     return harness.train_loop(
         step, gstate, dstate, loader.device_prefetch(it, dev, depth=2), args.train_dir,
         max_steps=args.max_steps, ckpt_every=args.ckpt_every, log_every=args.log_every,
@@ -156,7 +176,7 @@ def infer(args) -> dict:
     from advoc_tpu_torch.train.gan import latents
     from advoc_tpu_torch.train.harness import restore_latest, train_device
 
-    dev = train_device(args.device, args.n_devices)
+    dev = train_device(args.device)
     cfg = make_config(args)
     g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev)
     restore_latest(args.train_dir, {"g": gstate, "d": dstate})
@@ -197,7 +217,7 @@ def evaluate(args):
     from advoc_tpu_torch.train.eval_metrics import melspec_moment_panel
     from advoc_tpu_torch.utils import ensure_dataset
 
-    dev = harness.train_device(args.device, args.n_devices)
+    dev = harness.train_device(args.device)
     cfg = make_config(args)
     fps = ensure_dataset(args.data_dir, f"{args.train_dir}/synthetic_data")
 

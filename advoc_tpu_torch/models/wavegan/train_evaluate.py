@@ -18,9 +18,10 @@ n_frames chunks. The argparse surface of
 ``--device cpu`` runs on the CPU). Without ``--data_dir`` a synthetic fixture
 set is written into the train_dir. Latents come from ``torch.Generator``\\ s
 seeded from ``--seed`` (infer) or fixed seeds (eval), so samples are
-repeatable but are not the JAX CLI's. Training is single-process on one
-device: ``--n_devices`` > 1 and multi-process runs raise (ROADMAP.md queue A
-item 4, DDP).
+repeatable but are not the JAX CLI's. Training is data-parallel over
+``--n_devices`` ranks, as the advoc CLI's (``harness.launch_training``):
+``--batch_size`` is the global batch, and each rank decodes its rows of
+each critic's batch. ``eval`` and ``infer`` run as one process.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=20)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count: only 1 is ported (ROADMAP.md queue A)")
+                   help="data-parallel device count (default: all that divide the batch)")
     p.add_argument("--n_samples", type=int, default=8)
     p.add_argument("--eval_once", action="store_true")
     p.add_argument("--conditional", action="store_true",
@@ -77,7 +78,8 @@ def make_config(args):
     return apply_overrides(base, args.model_overrides)
 
 
-def _models_and_states(cfg, seed: int, device, conditional: bool, d_lr: float | None = None):
+def _models_and_states(cfg, seed: int, device, conditional: bool, d_lr: float | None = None,
+                       group=None):
     """The JAX CLI's models and Adams: (1e-4, 0.5, 0.9) for both WaveGAN
     nets; 2e-4 for the conditional G and ``d_lr`` (default 2e-4) for its D."""
     from advoc_tpu_torch.models import wavegan
@@ -91,37 +93,58 @@ def _models_and_states(cfg, seed: int, device, conditional: bool, d_lr: float | 
         g = wavegan.WaveGANGenerator(cfg).to(device)
         d = wavegan.WaveGANDiscriminator(cfg).to(device)
         g_tx = d_tx = gan.adam(1e-4, 0.5, 0.9)
-    gstate, dstate = gan.make_states(g, d, seed=seed, g_tx=g_tx, d_tx=d_tx)
+    gstate, dstate = gan.make_states(g, d, seed=seed, g_tx=g_tx, d_tx=d_tx, group=group)
     return g, d, gstate, dstate
 
 
 def train(args):
-    """Returns the train loop's (gstate, dstate, final_step)."""
+    """Returns the train loop's (gstate, dstate, final_step); with spawned
+    data-parallel ranks, each rank's (gstate.step, dstate.step,
+    final_step) (``harness.launch_training``)."""
+    from advoc_tpu_torch.train import harness
+
+    return harness.launch_training(_train, args)
+
+
+def _train(args, group):
+    """One rank's training (``group``: its data-parallel process group, or
+    None alone)."""
     from advoc_tpu_torch.data import loader
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
+    from advoc_tpu_torch.parallel import distributed
     from advoc_tpu_torch.train import gan, harness
     from advoc_tpu_torch.utils import ensure_dataset
 
-    dev = harness.train_device(args.device, args.n_devices)
+    dev = harness.train_device(args.device)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     cfg = make_config(args)
-    fps = ensure_dataset(args.data_dir, f"{args.train_dir}/synthetic_data")
-    g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev, args.conditional, args.d_lr)
+    fps = distributed.main_first(ensure_dataset, args.data_dir,
+                                 f"{args.train_dir}/synthetic_data")
+    g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev, args.conditional, args.d_lr,
+                                              group)
+    ranks = distributed.world_size()
+    on = f"on {dev}" + (f", {ranks} data-parallel ranks" if ranks > 1 else "")
+    b = args.batch_size // ranks  # each rank decodes only its rows of each batch
     if args.conditional:
-        print(f"[train] conditional wavegan (mel→waveform) on {dev}", flush=True)
+        if distributed.is_main():
+            print(f"[train] conditional wavegan (mel→waveform) {on}", flush=True)
         step = gan.make_cond_wavegan_train_step(g, d, cfg, P)
         it = loader.decode_extract_and_batch(
             fps, batch_size=args.batch_size, slice_len=cfg.slice_len, seed=args.seed,
-            sample_rate=P.sample_rate, out_dtype=args.h2d_dtype)
+            sample_rate=P.sample_rate, out_dtype=args.h2d_dtype,
+            rows=harness.rank_rows(args.batch_size))
     else:
-        print(f"[train] wavegan on {dev}, n_critic={cfg.n_critic}", flush=True)
+        if distributed.is_main():
+            print(f"[train] wavegan {on}, n_critic={cfg.n_critic}", flush=True)
         step = gan.make_wavegan_train_step(g, d, cfg)
         flat = loader.decode_extract_and_batch(
             fps, batch_size=args.batch_size * cfg.n_critic, slice_len=cfg.slice_len,
-            seed=args.seed, out_dtype=args.h2d_dtype)
-        # Each (n_critic·B, T) batch as (n_critic, B, T): one per critic.
-        it = (b.reshape(cfg.n_critic, args.batch_size, cfg.slice_len) for b in flat)
+            seed=args.seed, out_dtype=args.h2d_dtype,
+            rows=harness.rank_rows(args.batch_size, cfg.n_critic))
+        # Each (n_critic·b, T) batch as (n_critic, b, T): one per critic.
+        it = (x.reshape(cfg.n_critic, b, cfg.slice_len) for x in flat)
+    step = gan.data_parallel(step, batch_axis=None)
     return harness.train_loop(
         step, gstate, dstate, loader.device_prefetch(it, dev, depth=2), args.train_dir,
         max_steps=args.max_steps, ckpt_every=args.ckpt_every, log_every=args.log_every,
@@ -138,7 +161,7 @@ def infer(args) -> list[pathlib.Path]:
     from advoc_tpu_torch.train.gan import latents
     from advoc_tpu_torch.train.harness import restore_latest, train_device
 
-    dev = train_device(args.device, args.n_devices)
+    dev = train_device(args.device)
     cfg = make_config(args)
     g, d, gstate, dstate = _models_and_states(cfg, args.seed, dev, args.conditional)
     restore_latest(args.train_dir, {"g": gstate, "d": dstate})
@@ -198,7 +221,7 @@ def evaluate(args):
     from advoc_tpu_torch.train import gan, harness
     from advoc_tpu_torch.utils import ensure_dataset
 
-    dev = harness.train_device(args.device, args.n_devices)
+    dev = harness.train_device(args.device)
     cfg = make_config(args)
     fps = ensure_dataset(args.data_dir, f"{args.train_dir}/synthetic_data")
 

@@ -189,7 +189,8 @@ def _lib() -> ctypes.CDLL:
 def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Tensor:
     """(..., L) float32 waveform → (..., L//hop, n_mels) normalized mel.
 
-    On a CUDA tensor: the CUDA kernel, one launch on the current stream,
+    On a CUDA tensor: the CUDA kernel, one launch on the tensor's device and
+    its current stream,
     counted in ``fused_melspec_kernel.launches``; it raises on a tensor or
     AudioParams the kernel does not take, or a failed launch (a hop above
     736, whose audio window would not fit in shared memory, fails so). The
@@ -214,11 +215,12 @@ def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> T
         raise ValueError("fused_melspec_kernel indexes with 32-bit offsets")
     consts = _tc_consts_on(params, wav.device)
     out = torch.empty((b, n, params.n_mels), dtype=torch.float32, device=wav.device)
-    code = _lib().fused_melspec(
-        x.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(),
-        b, length, hop, params.n_mels, params.amp_floor, params.ref_level_db,
-        params.min_level_db, torch.cuda.current_stream(wav.device).cuda_stream,
-    )
+    with torch.cuda.device(wav.device):  # the launcher launches on the current device
+        code = _lib().fused_melspec(
+            x.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(),
+            b, length, hop, params.n_mels, params.amp_floor, params.ref_level_db,
+            params.min_level_db, torch.cuda.current_stream(wav.device).cuda_stream,
+        )
     _build.check(_lib(), code, "fused_melspec")
     fused_melspec_kernel.launches += 1
     return out.reshape(lead + (n, params.n_mels))

@@ -388,7 +388,7 @@ def griffin_lim_kernel(
     kernels of ``csrc/griffin_lim_tc.cu``, counted in
     ``griffin_lim_kernel.tc_launches``: 2·n_iters + 1 for T ≤ 256 without
     ``init_phase``, else 2·n_iters and one fp32 ``gl_synth_ola`` (counted in
-    ``launches``). All launch on the current stream; the wrapper raises on a
+    ``launches``). All launch on ``mag``'s device, on its current stream; the wrapper raises on a
     tensor the kernels do not take or a failed launch. The kernels have no
     backward (nor has the Pallas kernel), so under grad a ``mag`` or
     ``init_phase`` that requires grad raises rather than lose its
@@ -403,11 +403,13 @@ def griffin_lim_kernel(
     if mag.dtype != torch.float32 or not mag.is_contiguous():
         raise ValueError("griffin_lim_kernel needs a contiguous float32 tensor")
     b, t, f = mag.shape
-    if precision == "default":
-        return _run_tc(mag, n_iters, momentum, init_phase, params)
-    if b * (t + 3) * max(f, params.hop_length) >= 2**31:
+    if precision != "default" and b * (t + 3) * max(f, params.hop_length) >= 2**31:
         raise ValueError("griffin_lim_kernel indexes with 32-bit offsets")
-    return _run_fp32(mag, n_iters, momentum, init_phase, params)
+    # The launchers set their shared-memory attribute and launch on the
+    # current device: make it the tensor's.
+    with torch.cuda.device(mag.device):
+        run = _run_tc if precision == "default" else _run_fp32
+        return run(mag, n_iters, momentum, init_phase, params)
 
 
 griffin_lim_kernel.launches = 0

@@ -129,7 +129,7 @@ def packed_up_kernel(
 
     x (B, H, W, cin) bf16, wt (4, 4, cin, f) in flax layout, bias (f,);
     the JAX ``packed_up`` signature. On a CUDA tensor: the CUDA kernel, one
-    call on the current stream (the conv launch and, with ``with_stats``,
+    call on x's device and its current stream (the conv launch and, with ``with_stats``,
     the partials' reduction), counted in ``packed_up_kernel.launches``; it
     raises on a tensor the kernel does not take or a failed launch. On a
     CPU tensor: the plain version in bf16, :func:`packed_up_plain`.
@@ -157,11 +157,12 @@ def packed_up_kernel(
         n_part = (h // tm) * -(-w // 128) * 2
         stats = [*torch.empty((2, b, n_part, 2 * f), dtype=torch.float32, device=dev),
                  *torch.empty((2, b, 2 * f), dtype=torch.float32, device=dev)]
-    code = lib.packed_up(
-        x.data_ptr(), wq.data_ptr(), bias_p.data_ptr(), y.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in stats), b, h, w, cin, cp, f, tm,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launcher launches on the current device
+        code = lib.packed_up(
+            x.data_ptr(), wq.data_ptr(), bias_p.data_ptr(), y.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in stats), b, h, w, cin, cp, f, tm,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(lib, code, "packed_up")
     packed_up_kernel.launches += 1
     return (y, stats[2], stats[3]) if with_stats else y

@@ -184,17 +184,39 @@ def _overlap_add(windowed: Tensor, params: AudioParams, length: int) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def frame_local_stft(xp: Tensor, params: AudioParams = DEFAULT_PARAMS,
+                     n_frames: int | None = None) -> Tensor:
+    """The STFT of an already padded signal, the framing, window and rfft
+    that :func:`stft` and the time-sharded featurizer
+    (:mod:`advoc_tpu_torch.parallel.halo`) share: frame t covers
+    ``xp[..., t·hop : t·hop + n_fft)``, no padding is added (the caller owns
+    it: :func:`stft` reflect-pads, the halo exchange brings the neighbours'
+    samples). (..., L_padded) → (..., n_frames, n_freq) complex64;
+    ``n_frames`` defaults to the most that fit, 1 + (L_padded − n_fft)//hop."""
+    lead = xp.shape[:-1]
+    xb = xp.reshape(-1, xp.shape[-1]).to(torch.float32)
+    if n_frames is None:
+        n_frames = 1 + (xp.shape[-1] - params.n_fft) // params.hop_length
+    frames = _frame(xb, params, n_frames)
+    spec = torch.fft.rfft(frames * _const(params, "window", xb.device), n=params.n_fft)
+    return spec.reshape(lead + spec.shape[1:])
+
+
+def frame_local_stft_mag(xp: Tensor, params: AudioParams = DEFAULT_PARAMS,
+                         n_frames: int | None = None) -> Tensor:
+    """|:func:`frame_local_stft`|: (..., L_padded) → (..., n_frames, n_freq)
+    float32, the counterpart of the JAX package's function of this name."""
+    return torch.abs(frame_local_stft(xp, params, n_frames))
+
+
 def stft(x: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Tensor:
     """Centered STFT: (..., L) → (..., 1 + L//hop, n_freq) complex64
     (reflect padding, periodic Hann)."""
-    lead = x.shape[:-1]
     length = x.shape[-1]
-    xb = x.reshape(-1, length).to(torch.float32)
     pad = params.n_fft // 2
-    xp = F.pad(xb, (pad, pad), mode="reflect")
-    frames = _frame(xp, params, 1 + length // params.hop_length)
-    spec = torch.fft.rfft(frames * _const(params, "window", xb.device), n=params.n_fft)
-    return spec.reshape(lead + spec.shape[1:])
+    xp = F.pad(x.reshape(-1, length).to(torch.float32), (pad, pad), mode="reflect")
+    return frame_local_stft(xp.reshape(x.shape[:-1] + xp.shape[-1:]), params,
+                            1 + length // params.hop_length)
 
 
 def istft(spec: Tensor, length: int, params: AudioParams = DEFAULT_PARAMS) -> Tensor:

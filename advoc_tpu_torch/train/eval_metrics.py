@@ -2,7 +2,7 @@
 
 So far the distribution panel of MelSpecGAN's eval
 (``advoc_tpu.train.eval_metrics.melspec_moment_panel``); STOI, the stress
-panel and ``vocoder_eval`` are not ported yet (ROADMAP.md queue A item 6).
+panel and ``vocoder_eval`` are not ported yet (ROADMAP.md queue A item 4).
 """
 
 from __future__ import annotations

@@ -23,8 +23,18 @@ holds the parameters), its optimizer and the step count. Randomness (the
 latents z, the wgan-gp interpolation weights ε, the phase-shuffle shifts)
 comes from an explicit ``torch.Generator`` where JAX splits a
 ``PRNGKey``; a step's draws can also be passed in whole (``draws=``), so
-a test can give it JAX's. ``jit_data_parallel`` is not ported yet
-(ROADMAP.md queue A item 4).
+a test can give it JAX's.
+
+Data parallelism (:func:`data_parallel`, the counterpart of JAX's
+``jit_data_parallel``) runs one process a device: each rank takes its
+rows of the global batch, and states built with ``group=`` average their
+gradients over the ranks before each optimizer step. Every loss is a
+batch mean and no layer couples samples (GroupNorm normalizes each sample
+alone; there is no BatchNorm), so the ranks' mean gradient is the global
+batch's gradient; and every rank draws the global batch's z, ε and
+phase-shuffle shifts from the same seeded generator and keeps its rows.
+A data-parallel step is thus the single-process step on the global batch,
+up to the order of summation.
 """
 
 from __future__ import annotations
@@ -34,11 +44,13 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from advoc_tpu_torch.ops import spectral
 from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
+from advoc_tpu_torch.parallel.mesh import shard_rows
 
 Tensor = torch.Tensor
 
@@ -52,11 +64,14 @@ _IMPL_FLAGS = ("fused", "foreach", "capturable", "differentiable")
 
 @dataclasses.dataclass
 class TrainState:
-    """A module, its optimizer and the number of updates applied."""
+    """A module, its optimizer and the number of updates applied; with a
+    process ``group``, the ranks of a data-parallel run whose gradients it
+    averages."""
 
     model: nn.Module
     opt: torch.optim.Optimizer
     step: int = 0
+    group: dist.ProcessGroup | None = None
 
     @property
     def params(self) -> list[nn.Parameter]:
@@ -67,7 +82,10 @@ class TrainState:
         return next(self.model.parameters()).device
 
     def apply_gradients(self, grads) -> None:
-        """One optimizer step with ``grads`` (one per parameter, in order)."""
+        """One optimizer step with ``grads`` (one per parameter, in order),
+        first averaged over the ranks of ``group`` when the state has one."""
+        if self.group is not None:
+            grads = all_reduce_mean(list(grads), self.group)
         for p, g in zip(self.params, grads, strict=True):
             # Fused Adam takes each gradient in its parameter's layout; cuDNN
             # may return a weight's gradient in another (channels-last).
@@ -92,6 +110,22 @@ class TrainState:
         ]
         self.opt.load_state_dict(opt)
         self.step = int(state["step"])
+
+
+def all_reduce_mean(tensors: list[Tensor], group: dist.ProcessGroup) -> list[Tensor]:
+    """The mean of ``tensors`` over the ranks of ``group``: one all-reduce of
+    their flattened concatenation, divided by the world size; contiguous
+    tensors of the inputs' shapes."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return [x.view(t.shape) for x, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _shard(state: TrainState) -> tuple[int, int]:
+    """(rank, world size) of a state's data-parallel group; (0, 1) alone."""
+    g = state.group
+    return (0, 1) if g is None else (dist.get_rank(g), dist.get_world_size(g))
 
 
 class GanLosses(NamedTuple):
@@ -136,15 +170,19 @@ def gradient_penalty(
     fake: Tensor,
     eps: Tensor | None = None,
     generator: torch.Generator | None = None,
+    shard: tuple[int, int] = (0, 1),
 ) -> Tensor:
     """WGAN-GP penalty on interpolates ε·real + (1 − ε)·fake, one ε per row:
     mean((‖∇ₓ Σ d_fn(x)‖ − 1)²), differentiable in d_fn's parameters. ε is
-    ``eps`` (shape (B, 1, …)) or drawn uniform from ``generator``."""
+    ``eps`` (shape (B, 1, …)) or drawn uniform from ``generator``; with
+    ``shard`` (rank r of n), drawn for the global batch of n·B rows, of
+    which rows r·B … (r+1)·B − 1 are kept."""
     if eps is None:
         if generator is None:
             raise ValueError("gradient_penalty needs eps or a generator")
-        eps = torch.rand((real.shape[0],) + (1,) * (real.ndim - 1), generator=generator,
-                         device=real.device, dtype=real.dtype)
+        eps = torch.rand((real.shape[0] * shard[1],) + (1,) * (real.ndim - 1),
+                         generator=generator, device=real.device, dtype=real.dtype)
+        eps = shard_rows(eps, 0, *shard)
     interp = (eps * real + (1.0 - eps) * fake).detach().requires_grad_(True)
     (grads,) = torch.autograd.grad(d_fn(interp).sum(), interp, create_graph=True)
     norms = torch.sqrt(torch.sum(grads.reshape(grads.shape[0], -1) ** 2, dim=-1) + 1e-12)
@@ -210,7 +248,7 @@ def make_advoc_train_step(g_model: nn.Module, d_model: nn.Module, cfg,
         d_loss = losses.d_loss(real_logits, fake_logits)
         if losses.needs_gp:
             d_loss = d_loss + cfg.gp_weight * gradient_penalty(
-                lambda x: d(cond, x), real, fake, generator=generator)
+                lambda x: d(cond, x), real, fake, generator=generator, shard=_shard(dstate))
         dstate.apply_gradients(torch.autograd.grad(d_loss, dstate.params))
 
         # G update, scored by the updated D; no gradient reaches D.
@@ -267,7 +305,8 @@ def _draws(generator, device, gp: bool, n_d: int, batch: int, like: Tensor,
     """A step's random draws: ``z`` (n_d + 1, batch, latent) normal (one per
     D update and one for G), ``eps`` (n_d, batch, 1, …) uniform shaped to
     broadcast over ``like`` (under wgan-gp), ``shifts`` (n_d + 1,
-    n_shuffled, batch) for ``d_model``'s phase shuffle."""
+    n_shuffled, batch) for ``d_model``'s phase shuffle. ``batch`` is the
+    global batch's (:func:`_own_draws` keeps a rank's rows)."""
     out = {}
     if latent is not None:
         out["z"] = torch.randn((n_d + 1, batch, latent), generator=generator, device=device)
@@ -278,6 +317,12 @@ def _draws(generator, device, gp: bool, n_d: int, batch: int, like: Tensor,
         out["shifts"] = torch.stack([d_model.draw_shifts(batch, generator, device)
                                      for _ in range(n_d + 1)])
     return out
+
+
+def _own_draws(draws: dict[str, Tensor], shard: tuple[int, int]) -> dict[str, Tensor]:
+    """A rank's rows of the global batch's draws (their batch axis: 1 for z
+    and ε, the last for the shifts)."""
+    return {k: shard_rows(v, -1 if k == "shifts" else 1, *shard) for k, v in draws.items()}
 
 
 def make_wavegan_train_step(g_model: nn.Module, d_model: nn.Module, cfg):
@@ -299,9 +344,11 @@ def make_wavegan_train_step(g_model: nn.Module, d_model: nn.Module, cfg):
         g, d = g_model, d_model
         wav = as_waveform(wav)
         n, b = wav.shape[:2]
+        shard = _shard(dstate)
         if draws is None:
-            draws = _draws(generator, wav.device, losses.needs_gp, n, b, wav[0],
+            draws = _draws(generator, wav.device, losses.needs_gp, n, b * shard[1], wav[0],
                            cfg.latent_dim, d)
+        draws = _own_draws(draws, shard)
         d_losses = []
         for i in range(n):
             with torch.no_grad():
@@ -342,9 +389,11 @@ def make_cond_wavegan_train_step(g_model: nn.Module, d_model: nn.Module, cfg,
             mel = featurize(wav)
             fake = g(mel)
         real = wav[:, : cfg.slice_len]
+        shard = _shard(dstate)
         if draws is None:
-            draws = _draws(generator, wav.device, losses.needs_gp, 1, wav.shape[0], real,
-                           d_model=d)
+            draws = _draws(generator, wav.device, losses.needs_gp, 1, wav.shape[0] * shard[1],
+                           real, d_model=d)
+        draws = _own_draws(draws, shard)
         shifts = draws["shifts"][0]
         d_loss = _critic_loss(losses, cfg, lambda x: d(x, mel, shifts), real, fake,
                               draws["eps"][0] if losses.needs_gp else None)
@@ -381,8 +430,11 @@ def make_melspecgan_train_step(g_model: nn.Module, d_model: nn.Module, cfg,
             mel = spectral.waveform_to_r9y9_melspec(as_waveform(wav), audio_params,
                                                     impl="xla")[..., : cfg.n_frames, :]
         n, b = mel.shape[:2]
+        shard = _shard(dstate)
         if draws is None:
-            draws = _draws(generator, mel.device, losses.needs_gp, n, b, mel[0], cfg.latent_dim)
+            draws = _draws(generator, mel.device, losses.needs_gp, n, b * shard[1], mel[0],
+                           cfg.latent_dim)
+        draws = _own_draws(draws, shard)
         d_losses = []
         for i in range(n):
             with torch.no_grad():
@@ -412,13 +464,42 @@ def adam(lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999):
 
 
 def make_states(g_model: nn.Module, d_model: nn.Module, seed: int = 0,
-                g_tx=None, d_tx=None) -> tuple[TrainState, TrainState]:
+                g_tx=None, d_tx=None,
+                group: dist.ProcessGroup | None = None) -> tuple[TrainState, TrainState]:
     """Initialize both models with flax's initializers from ``seed`` (the
     generator's weights first, then the discriminator's, from one CPU
-    ``torch.Generator``, so the weights are the same on every device) and
-    wrap each with its optimizer (default :func:`adam`)."""
+    ``torch.Generator``, so the weights are the same on every device and
+    every rank) and wrap each with its optimizer (default :func:`adam`);
+    ``group``: the data-parallel ranks whose gradients the states average."""
     rng = torch.Generator().manual_seed(seed)
     g_model.reset_parameters(rng)
     d_model.reset_parameters(rng)
-    return (TrainState(g_model, (g_tx or adam())(g_model.parameters())),
-            TrainState(d_model, (d_tx or adam())(d_model.parameters())))
+    return (TrainState(g_model, (g_tx or adam())(g_model.parameters()), group=group),
+            TrainState(d_model, (d_tx or adam())(d_model.parameters()), group=group))
+
+
+def data_parallel(step_fn: Callable, batch_axis: int | None = 0) -> Callable:
+    """A step of this rank of a data-parallel run, the counterpart of JAX's
+    ``jit_data_parallel``: ``step(gstate, dstate, batch, generator=None,
+    **kw)`` takes this rank's contiguous rows of the global ``batch``
+    (tensor or numpy) along ``batch_axis`` (1 for the critics' stacked
+    (n_critic, B, …) batches; None: the batch holds this rank's rows
+    already, as the wire loader's ``rows=`` cuts them), runs ``step_fn`` on
+    them and averages its metrics over the ranks. The ranks are those of
+    the states' process group (``make_states(group=)``), over which they
+    average their gradients; states without one take ``step_fn`` on the
+    whole batch. ``draws=`` are the global batch's.
+    """
+
+    def step(gstate: TrainState, dstate: TrainState, batch, generator=None, **kw):
+        if gstate.group is None:
+            return step_fn(gstate, dstate, batch, generator, **kw)
+        if batch_axis is not None:
+            batch = shard_rows(batch, batch_axis, *_shard(gstate))
+        gstate, dstate, metrics = step_fn(gstate, dstate, batch, generator, **kw)
+        keys = sorted(metrics)
+        mean = all_reduce_mean([torch.stack([metrics[k].float() for k in keys])],
+                               gstate.group)[0]
+        return gstate, dstate, dict(zip(keys, mean.unbind()))
+
+    return step

@@ -6,8 +6,15 @@ at ``max_steps``, and two guards that end a diverged run loudly after
 saving it. ``step_fn(gstate, dstate, batch, generator)`` is a step of
 :mod:`advoc_tpu_torch.train.gan`; the loop owns its ``torch.Generator``,
 seeded from ``seed`` on the states' device, where the JAX loop splits a
-``PRNGKey``. The training CLIs share :func:`train_device` (one device;
-data parallelism raises) and :func:`restore_latest` (their infer modes).
+``PRNGKey``. The training CLIs share :func:`train_device`,
+:func:`launch_training` (their data-parallel ranks) and
+:func:`restore_latest` (their infer modes).
+
+In a data-parallel run every rank runs the loop on its rows of each batch
+(``train.gan.data_parallel``) and restores the same checkpoint; rank 0
+alone logs, writes summaries, ``config.json`` and checkpoints, and every
+rank waits at a barrier after each save, so a run killed after a
+checkpoint resumes on every rank from that step.
 """
 
 from __future__ import annotations
@@ -20,22 +27,80 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from advoc_tpu_torch.parallel import distributed
+from advoc_tpu_torch.parallel.mesh import shard_rows
 from advoc_tpu_torch.train import metrics as metrics_lib
 from advoc_tpu_torch.train.checkpoint import CheckpointManager
 
 
-def train_device(device, n_devices: int | None = None) -> torch.device:
-    """The one device the training CLIs run on: ``device`` (cuda, which
-    raises without a card, or cpu). Data parallelism (``n_devices`` > 1,
-    or several processes) raises: it is ROADMAP.md queue A item 4 (DDP)."""
+def train_device(device) -> torch.device:
+    """This process's device of the CLIs' ``--device``: cpu, or (cuda,
+    which raises without a card) this rank's card, ``cuda:LOCAL_RANK``
+    (:func:`~advoc_tpu_torch.parallel.distributed.local_device`)."""
     from advoc_tpu_torch.infer.vocoder import _resolve_device
 
-    if (n_devices or 1) > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "data-parallel training (--n_devices > 1, several processes) is not ported "
-            "yet: ROADMAP.md queue A item 4 (DDP)")
-    return _resolve_device(device)
+    return distributed.local_device(_resolve_device(device))
+
+
+def rank_rows(batch_size: int, n_stacked: int = 1) -> list[int] | None:
+    """This rank's rows of a global loader batch of ``n_stacked`` stacked
+    batches of ``batch_size`` rows (the critics' (n_stacked·B, …) flat
+    batch): rows r·b … (r+1)·b − 1 of each, b = batch_size / the ranks;
+    None in a single process (every row)."""
+    n = distributed.world_size()
+    if n == 1:
+        return None
+    index = np.arange(n_stacked * batch_size).reshape(n_stacked, batch_size)
+    return shard_rows(index, 1, distributed.rank(), n).reshape(-1).tolist()
+
+
+def _rank_train(train_fn: Callable, args) -> tuple[int, int, int]:
+    gstate, dstate, step = train_fn(args, dist.group.WORLD)
+    return gstate.step, dstate.step, step
+
+
+def launch_training(train_fn: Callable, args):
+    """Run ``train_fn(args, group)`` (it returns the train loop's (gstate,
+    dstate, final_step)) as the run's data-parallel ranks, ``group`` their
+    process group or None for one process, and return what it returns.
+
+    Under torchrun (``WORLD_SIZE`` > 1 in the environment) this process
+    joins the group as its rank. Otherwise ``args.n_devices`` (default: the
+    visible cards, shrunk to divide ``args.batch_size``, as
+    :func:`~advoc_tpu_torch.parallel.mesh.data_mesh` sizes a mesh) ranks
+    are spawned on this host, one a card (``--device cpu``: gloo ranks on
+    the CPU, each with its share of torch's threads), and each rank's
+    (gstate.step, dstate.step, final_step) is returned, in rank order.
+    One rank runs in this process. ``--n_devices`` above the visible cards
+    or not dividing the batch raises.
+    """
+    from advoc_tpu_torch.infer.vocoder import _resolve_device
+    from advoc_tpu_torch.parallel.mesh import data_mesh
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        if args.n_devices not in (None, world):
+            raise ValueError(f"--n_devices {args.n_devices} in a run of WORLD_SIZE={world} "
+                             "processes")
+        if args.batch_size % world:
+            raise ValueError(f"--batch_size {args.batch_size} is not divisible by the "
+                             f"{world} processes")
+        distributed.initialize(device=args.device)
+        try:
+            return train_fn(args, dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    device = _resolve_device(args.device)
+    devices = None if device.type == "cuda" else [device] * (args.n_devices or 1)
+    mesh = data_mesh(args.n_devices, args.batch_size, devices)
+    if mesh.size == 1:
+        return train_fn(args, None)
+    threads = None if device.type == "cuda" else max(1, torch.get_num_threads() // mesh.size)
+    # No deadline: a run lasts as long as its steps; a rank that fails ends it.
+    return distributed.launch(_rank_train, mesh, (train_fn, args), threads=threads,
+                              timeout_s=None)
 
 
 def restore_latest(train_dir: str, template: dict) -> int | None:
@@ -73,8 +138,8 @@ def check_run_config(train_dir: str, config: dict) -> None:
         path.write_text(json.dumps(config, indent=2, sort_keys=True))
 
 
-def _save_and_raise(mgr: CheckpointManager, step: int, state: dict, msg: str):
-    mgr.save(step, state, wait=True)
+def _save_and_raise(save: Callable, mgr: CheckpointManager, step: int, msg: str):
+    save(step, wait=True)
     mgr.close()
     raise FloatingPointError(msg)
 
@@ -107,15 +172,23 @@ def train_loop(
     value above ``explode_ratio`` × max(EMA, 1) saves and raises the same
     way (the first check only seeds the EMA). 0 disables either guard.
     """
-    if config is not None:
-        check_run_config(train_dir, config)
+    main = distributed.is_main()
+    if config is not None:  # rank 0 records it, the others read it after
+        distributed.main_first(check_run_config, train_dir, config)
     mgr = CheckpointManager(train_dir, max_to_keep=5)
     bundle, start = mgr.restore_or_init({"g": gstate, "d": dstate})
     gstate, dstate = bundle["g"], bundle["d"]
-    if start:
+    if start and main:
         print(f"[train] resumed from step {start} in {train_dir}", flush=True)
 
-    writer = metrics_lib.SummaryWriter(f"{train_dir}/tb")
+    def save(step: int, wait: bool = False) -> None:
+        # Data-parallel, the save is on disk before the barrier lets any
+        # rank past this step.
+        if main:
+            mgr.save(step, {"g": gstate, "d": dstate}, wait=wait or distributed.world_size() > 1)
+        distributed.barrier()
+
+    writer = metrics_lib.SummaryWriter(f"{train_dir}/tb") if main else None
     generator = torch.Generator(device=gstate.device).manual_seed(seed)
     step = steps_at_last = start
     t_last = time.perf_counter()
@@ -130,7 +203,7 @@ def train_loop(
             host = metrics_lib.to_host(m)
             bad = {k: v for k, v in host.items() if not np.isfinite(v)}
             if bad:
-                _save_and_raise(mgr, step, {"g": gstate, "d": dstate},
+                _save_and_raise(save, mgr, step,
                                 f"non-finite training metrics at step {step}: {bad} "
                                 f"(diverged checkpoint saved to {train_dir})")
             blown = {}
@@ -143,29 +216,31 @@ def train_loop(
                 loss_emas[k] = abs(v) if ema is None else 0.9 * ema + 0.1 * abs(v)
             if blown:
                 detail = ", ".join(f"{k}={v:.4g} (EMA {e:.4g})" for k, (v, e) in blown.items())
-                _save_and_raise(mgr, step, {"g": gstate, "d": dstate},
+                _save_and_raise(save, mgr, step,
                                 f"training explosion at step {step}: {detail} exceeded "
                                 f"{explode_ratio}× max(EMA, 1) while still finite, which the "
                                 f"NaN guard cannot see. Diverged checkpoint saved to "
                                 f"{train_dir}; resume from the last healthy periodic checkpoint.")
 
-        if step % log_every == 0:
+        if step % log_every == 0 and main:
             host = metrics_lib.to_host(m)  # waits for the device: the rate is honest
             dt = time.perf_counter() - t_last
             rate = (step - steps_at_last) / max(dt, 1e-9)
             t_last, steps_at_last = time.perf_counter(), step
             msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(host.items()))
             print(f"[train] step {step} ({rate:.2f} steps/s) {msg}", flush=True)
-        if step % summary_every == 0:
+        if step % summary_every == 0 and main:
             writer.scalars(step, metrics_lib.to_host(m))
         if step % ckpt_every == 0:
-            mgr.save(step, {"g": gstate, "d": dstate})
-            print(f"[train] checkpoint @ {step}", flush=True)
+            save(step)
+            if main:
+                print(f"[train] checkpoint @ {step}", flush=True)
 
     if step > start and step % ckpt_every != 0:
-        mgr.save(step, {"g": gstate, "d": dstate})
+        save(step)
     mgr.close()  # waits for an in-flight save
-    writer.close()
+    if writer is not None:
+        writer.close()
     close = getattr(data_it, "close", None)
     if close is not None:  # release the loader's producer thread promptly
         close()

@@ -5,6 +5,8 @@ device scalars back in one stacked copy, never one per scalar.
 :class:`SummaryWriter` writes scalars, images and audio through
 ``torch.utils.tensorboard`` where the ``tensorboard`` package imports, and
 does nothing where it does not (as the JAX writer does without TensorFlow).
+It opens that writer at its first summary: the import takes seconds, which
+a short run (or a data-parallel rank that writes nothing) does not pay.
 """
 
 from __future__ import annotations
@@ -30,15 +32,24 @@ class SummaryWriter:
 
     def __init__(self, logdir: str):
         self.logdir = str(logdir)
-        try:
-            from torch.utils.tensorboard import SummaryWriter as _Writer
-        except ImportError:
-            self._writer = None
-        else:
-            self._writer = _Writer(self.logdir)
+        self._writer = None
+        self._opened = False
+
+    def _open(self):
+        """The tensorboard writer, opened at the first call; None without
+        tensorboard."""
+        if not self._opened:
+            self._opened = True
+            try:
+                from torch.utils.tensorboard import SummaryWriter as _Writer
+            except ImportError:
+                pass
+            else:
+                self._writer = _Writer(self.logdir)
+        return self._writer
 
     def scalars(self, step: int, values: Mapping[str, float]) -> None:
-        if self._writer is None:
+        if self._open() is None:
             return
         for k, v in values.items():
             self._writer.add_scalar(k, float(v), step)
@@ -46,7 +57,7 @@ class SummaryWriter:
 
     def image(self, step: int, tag: str, img: np.ndarray) -> None:
         """img: (H, W) or (H, W, C) float in [0, 1] (e.g. a spectrogram)."""
-        if self._writer is None:
+        if self._open() is None:
             return
         img = np.asarray(img, np.float32)
         self._writer.add_image(tag, img, step, dataformats="HW" if img.ndim == 2 else "HWC")
@@ -54,7 +65,7 @@ class SummaryWriter:
 
     def audio(self, step: int, tag: str, wav: np.ndarray, sample_rate: int) -> None:
         """wav: (T,) float in [-1, 1]."""
-        if self._writer is None:
+        if self._open() is None:
             return
         snd = torch.from_numpy(np.clip(np.asarray(wav, np.float32).reshape(1, -1), -1, 1))
         self._writer.add_audio(tag, snd, step, sample_rate=sample_rate)

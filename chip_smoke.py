@@ -59,6 +59,17 @@ after:
   ``--advoc_ckpt`` on phase (i)'s full-width run), each through the
   tensor-core G-L kernel, held by mel L1 to the CPU port at the card's
   split G-L precision.
+* data parallelism (:func:`parallel`, phase (k)): ``Vocoder(mesh=)`` at
+  full width on B=128 × 256 frames over two shards on the card (the
+  tensor-core G-L kernel on each shard) against the unsharded call; the
+  ``StreamingVocoder(mesh=)`` gl and lws_block engines with
+  ``small_config``, 16 streams over two shards, against the unsharded
+  engine, masked rows bit-equal; ``sharded_melspec`` on a 4-shard mesh;
+  the DP step by ``parallel.mp_check`` at full width, timed (the gradient
+  all-reduce's bytes and ms per step, the step's ms), with two gloo ranks
+  sharing the card and with one NCCL rank;
+  where the machine has two cards or more, two NCCL ranks and the
+  two-card ``Vocoder(mesh=)`` as well.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -1109,6 +1120,167 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     return out
 
 
+def parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi: str) -> dict:
+    """Phase (k): the mesh'd vocoders, the halo-exchanged featurizer and
+    the data-parallel step on the card (see the module's docstring).
+    Returns the numbers it printed."""
+    from advoc_tpu_torch.data.synthetic import synthetic_speech
+    from advoc_tpu_torch.infer import StreamingVocoder, Vocoder
+    from advoc_tpu_torch.models.advoc import AdvocGenerator
+    from advoc_tpu_torch.models.advoc.model import small_config
+    from advoc_tpu_torch.ops import spectral as sp
+    from advoc_tpu_torch.parallel import data_mesh, mp_check
+    from advoc_tpu_torch.parallel.halo import sharded_melspec
+
+    t_phase = time.perf_counter()
+    out: dict = {"ran": []}
+    card = torch.device("cuda", 0)
+    two = data_mesh(devices=[card, card])
+
+    # -- (k-a) Vocoder(mesh=): two shards of 64 rows on the card -----------------
+    # Each shard runs B1 on its rows (2·30 + 1 tensor-core launches a shard).
+    # Waveforms are compared sample by sample with the unsharded Vocoder on
+    # each shard's rows (the same shapes, so the same cuDNN algorithms):
+    # atol 1e-3. Against the unsharded call on all 128 rows, by mel L1 within
+    # 2e-3: the bf16 U-Net at 64 rows rounds apart from 128 rows (2.7e-2 at
+    # most on an H100), which 30 G-L iterations at momentum 0.99 amplify
+    # chaotically, so those waveforms are not sample-comparable.
+    batch = mels(128, 256, seed=1)
+    want = voc(batch)
+    halves = torch.cat([voc(batch[:64]), voc(batch[64:])])
+    voc_mesh = Vocoder(gen, mesh=two)
+    zero_counts()
+    got = voc_mesh(batch)
+    torch.cuda.synchronize()
+    out["vocoder_launches"] = counts()
+    require(out["vocoder_launches"] == {"griffin_lim": 0, "griffin_lim_tc": 2 * (2 * 30 + 1),
+                                        "fused_melspec": 0, "packed_up": 0},
+            f"G-L kernel launches of the two-shard Vocoder: {out['vocoder_launches']}")
+    err = float((got - halves).abs().max())
+    err_all = float((got - want).abs().max())
+    l1_mesh, l1_one = mel_l1(got, batch), mel_l1(want, batch)
+    require(tuple(got.shape) == (128, 256 * HOP) and bool(torch.isfinite(got).all()),
+            f"two-shard Vocoder output {tuple(got.shape)}")
+    require(err <= 1e-3 and abs(l1_mesh - l1_one) <= 2e-3,
+            f"two-shard Vocoder: max|Δ| {err} vs the unsharded call on each shard's rows, "
+            f"mel L1 {l1_mesh} vs {l1_one} unsharded")
+    ms_mesh, ms_one = cuda_ms(lambda: voc_mesh(batch)), cuda_ms(lambda: voc(batch))
+    out["k_a_s"] = time.perf_counter() - t_phase
+    out["vocoder"] = {"max_abs_err": err, "max_abs_err_128_rows": err_all, "mel_l1": l1_mesh,
+                      "ms": ms_mesh, "unsharded_ms": ms_one}
+    print(f"(k-a) Vocoder(mesh=) two shards on one card, B=128×256, full width: launches "
+          f"{out['vocoder_launches']}, max|Δ| vs the unsharded call on each shard's rows "
+          f"{err:.2e} (vs all 128 rows at once {err_all:.2e}), mel L1 {l1_mesh:.5f} vs "
+          f"{l1_one:.5f}; {ms_mesh:.2f} ms vs unsharded {ms_one:.2f} ms ({smi})")
+    del got, want, halves
+
+    # -- (k-b) StreamingVocoder(mesh=): 16 streams over two shards ---------------
+    # Every push within 1e-3 of unsharded engines of each shard's 8 streams
+    # (the same shapes, as in (k-a)); the streams within 10% by mel L1 of
+    # one unsharded 16-stream engine (the bf16 generator rounds apart at 8
+    # and 16 rows, and G-L's phase carry is chaotic). Masked rows equal the
+    # same engine's batched rows bit for bit, inactive rows are zeros.
+    sgen = AdvocGenerator(small_config())
+    sgen.reset_parameters(torch.Generator().manual_seed(5))
+    n_s, n_chunks, chunk = 16, 3, 64
+    utts = np.stack([mels(1, n_chunks * chunk, seed=200 + s)[0].cpu().numpy()
+                     for s in range(n_s)]).reshape(n_s, n_chunks, chunk, 80)
+    active = np.arange(n_s) % 3 != 0
+    for engine in ("gl", "lws_block"):
+        sv_one = StreamingVocoder(sgen, n_streams=n_s, phase_engine=engine, device=card)
+        sv_rows = [StreamingVocoder(sgen, n_streams=n_s // 2, phase_engine=engine, device=card)
+                   for _ in range(2)]
+        sv_mesh, sv_mask = (StreamingVocoder(sgen, n_streams=n_s, phase_engine=engine, mesh=two)
+                            for _ in range(2))
+        errs, streams = [], {"mesh": [], "one": []}
+        for c in range(n_chunks):
+            a, b = sv_mesh.push(utts[:, c]), sv_one.push(utts[:, c])
+            rows = np.concatenate([sv.push(utts[i * n_s // 2 : (i + 1) * n_s // 2, c])
+                                   for i, sv in enumerate(sv_rows)])
+            m = sv_mask.push(utts[:, c], active=active)
+            require(np.array_equal(m[active], a[active]) and not m[~active].any(),
+                    f"{engine} masked push {c}: rows equal the batched rows, zeros elsewhere")
+            errs.append(float(np.abs(a - rows).max()))
+            streams["mesh"].append(a)
+            streams["one"].append(b)
+        require(max(errs) <= 1e-3, f"{engine} two-shard engine vs unsharded engines of its "
+                                   f"shards' rows: max|Δ| {errs}")
+        target = torch.tensor(utts.reshape(n_s, -1, 80), device=card)
+        l1 = {k: mel_l1(torch.tensor(np.concatenate(v, axis=1), device=card), target)
+              for k, v in streams.items()}
+        require(abs(l1["mesh"] - l1["one"]) <= 0.1 * l1["one"], f"{engine} stream mel L1 {l1}")
+        out[f"stream_{engine}"] = {"max_abs_err": errs, "mel_l1": l1}
+        print(f"(k-b) StreamingVocoder(mesh=) {engine}, small_config, 16 streams over two shards, "
+              f"{n_chunks} pushes of 64 frames: max|Δ| vs unsharded 8-stream engines per push "
+              + ", ".join(f"{e:.2e}" for e in errs)
+              + f"; mel L1 {l1['mesh']:.5f} vs {l1['one']:.5f}; masked rows bit-equal")
+
+    out["k_b_s"] = time.perf_counter() - t_phase
+    # -- (k-c) sharded_melspec on a 4-shard mesh, ≈ 4 s of audio ------------------
+    length = 86 * 4 * HOP  # 88064 samples: whole hops on each of 4 shards
+    wav = torch.tensor(synthetic_speech(300, length), device=card)
+    got = torch.cat(sharded_melspec(wav, data_mesh(devices=[card] * 4)))
+    want = sp.waveform_to_r9y9_melspec(wav)[: length // HOP]
+    err = float((got - want).abs().max())
+    require(tuple(got.shape) == (length // HOP, 80) and err <= 1e-4,
+            f"sharded_melspec on 4 shards vs waveform_to_r9y9_melspec: max|Δ| {err}")
+    out["halo_max_abs_err"] = err
+    print(f"(k-c) sharded_melspec 4 shards × {length // 4} samples on one card vs the unsharded "
+          f"mel: max|Δ| {err:.2e} (normalized dB)")
+
+    # -- (k-d) the DP step: parallel.mp_check ------------------------------------
+    def check(n: int, backend: str, config: str, timed: int, rtol: float, atol: float):
+        t0 = time.perf_counter()
+        rep = mp_check.run_check(n, device="cuda", backend=backend, config=config,
+                                 timed_steps=timed, rtol=rtol, atol=atol, timeout_s=300)
+        name = (f"{backend} ×{n} {config} on {sorted(set(rep['devices']))} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        require(rep["match"], f"mp_check {name}: {json.dumps(rep)}")
+        out["ran"].append(name)
+        if timed:
+            out[f"{backend}x{n}"] = {k: rep[k] for k in ("step_ms", "allreduce_ms",
+                                                         "allreduce_bytes", "reference_step_ms")}
+            print(f"(k-d) DP step {name}, global batch 8: step "
+                  + ", ".join(f"{x:.1f}" for x in rep["step_ms"])
+                  + f" ms a rank (one process on the whole batch "
+                  f"{rep['reference_step_ms']:.1f} ms); gradient all-reduce "
+                  f"{rep['allreduce_bytes'] / 1e6:.1f} MB in "
+                  + ", ".join(f"{x:.1f}" for x in rep["allreduce_ms"])
+                  + f" ms a step ({smi})")
+        else:
+            print(f"(k-d) mp_check {name}: match, metrics {rep['workers'][0]}")
+        return rep
+
+    # Full width, bf16 convolutions: each rank's half batch rounds in other
+    # places than the whole batch, 2e-2 relative as phase (i)'s card-vs-CPU
+    # step. (The float32 gate, JAX's rtol 2e-4, is the CPU tests'
+    # tests/test_torch_parallel_dp.py: a third spawn costs this phase ≈ 30 s.)
+    try:
+        check(2, "gloo", "full", 3, 2e-2, 1e-3)
+    except RuntimeError as exc:
+        text = str(exc).lower()
+        if "gloo" not in text or not any(w in text for w in ("not supported", "unsupported",
+                                                             "not implemented")):
+            raise
+        out["gloo"] = f"refused: {str(exc)[-300:]}"
+        print(f"(k-d) gloo refused CUDA tensors; its run stops here: {out['gloo']}")
+    check(1, "nccl", "full", 3, 2e-2, 1e-3)
+    if torch.cuda.device_count() >= 2:
+        check(2, "nccl", "full", 3, 2e-2, 1e-3)
+        cards = data_mesh(2)
+        batch = mels(16, 256, seed=6)
+        got = Vocoder(gen, mesh=cards)(batch)
+        err = float((got - torch.cat([voc(batch[:8]), voc(batch[8:])])).abs().max())
+        require(err <= 1e-3, f"two-card Vocoder vs one card on each shard's rows: max|Δ| {err}")
+        out["ran"].append(f"Vocoder(mesh=) on {list(map(str, cards.devices))}")
+        print(f"(k-d) Vocoder(mesh=) on two cards, B=16×256: max|Δ| vs one card {err:.2e}")
+    print(f"(k) ran: {out['ran']} (visible cards: {torch.cuda.device_count()})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase (k) took {out['phase_s']:.1f} s ((k-a) done at {out['k_a_s']:.1f} s, "
+          f"(k-b) at {out['k_b_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1230,9 +1402,12 @@ def main() -> int:
     # B=8 at 256, 512, 768 and 1024 frames: the shapes vocode_cli's --batch 8
     # groups give the kernel in the serving phase (d); B=8 at 64 frames, a
     # partial tile: the heuristic melspecgan --vocode pipeline's in phase (j).
+    # B=64 at 256 frames, a partial last 128-row tile: a shard of the
+    # two-shard Vocoder(mesh=) in phase (k); B=8 at 72 frames from a carried
+    # phase: a shard of the two-shard gl StreamingVocoder(mesh=) there.
     cases = [(2, 256, False), (2, 1024, False), (2, 256, True), (1, 1024, False),
              (128, 256, False), (8, 64, False), (8, 256, False), (8, 512, False),
-             (8, 768, False), (8, 1024, False)]
+             (8, 768, False), (8, 1024, False), (64, 256, False), (8, 72, True)]
     for b, t, with_init in cases:
         mel = mels(b, t, seed=t + b)
         mag = sp.r9y9_melspec_to_magspec(mel)[..., :512].contiguous()
@@ -1601,6 +1776,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         trained = training(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
         fam = families(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
+    par = parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi)
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
@@ -1622,6 +1798,7 @@ def main() -> int:
         "launches_train_infer": trained["infer_launches"]["griffin_lim"],
         "launches_melspecgan_vocode": fam["pipeline"]["vocode"]["launches"]["griffin_lim"],
         "launches_melspecgan_advoc": fam["pipeline"]["advoc"]["launches"]["griffin_lim"],
+        "launches_vocoder_mesh": par["vocoder_launches"]["griffin_lim"],
         "checks": "pass",
         "max_abs_err": max(main_errs["highest"]),
         "ms": gl_ms,
@@ -1651,6 +1828,7 @@ def main() -> int:
         "launches_train_infer": trained["infer_launches"]["griffin_lim_tc"],
         "launches_melspecgan_vocode": fam["pipeline"]["vocode"]["launches"]["griffin_lim_tc"],
         "launches_melspecgan_advoc": fam["pipeline"]["advoc"]["launches"]["griffin_lim_tc"],
+        "launches_vocoder_mesh": par["vocoder_launches"]["griffin_lim_tc"],
         "ms_b8_t64": fam["pipeline"]["vocode"]["b1_ms"],
         "bound_ms_b8_t64": fam["pipeline"]["vocode"]["b1_bound_ms"],
         "ms_b8_t256": fam["pipeline"]["advoc"]["b1_ms"],

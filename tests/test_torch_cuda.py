@@ -548,3 +548,35 @@ def test_matmul_default_precision_on_the_card(dev):
         sp.griffin_lim(mag, n_iters=16, momentum=0.99, precision=prec))[:, :128] - mel).abs().mean())
         for prec in ("highest", "default")}
     assert abs(l1["default"] - l1["highest"]) < 2e-3, l1
+
+
+@pytest.fixture
+def second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+def test_each_kernel_launches_on_its_tensors_card(second_card):
+    """With cuda:0 current, each kernel on a tensor on cuda:1 equals its
+    plain version there: the wrappers make the tensor's card current, where
+    the launchers set their shared-memory attribute and launch."""
+    dev = second_card
+    torch.cuda.set_device(0)
+    mel, mag = _mel_mag(dev, 2, 64, 512)
+    for precision, rtol in (("highest", 1e-3), ("default", 2e-2)):
+        y = tgl.griffin_lim_kernel(mag, 1, 0.0, precision=precision)
+        want = tgl.griffin_lim_plain(mag, 1, 0.0, precision=precision)
+        assert y.device == dev
+        torch.testing.assert_close(y, want, rtol=0, atol=rtol * float(want.abs().max()))
+    wav = torch.tensor(synthetic_speech(1, 2 * 64 * 256), device=dev).reshape(2, -1)
+    torch.testing.assert_close(tfeat.fused_melspec_kernel(wav), tfeat.fused_melspec_plain(wav),
+                               rtol=0, atol=2e-4)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 32, 72, 24), generator=g, device=dev).to(torch.bfloat16)
+    wt = torch.randn((4, 4, 24, 40), generator=g, device=dev) / (16 * 24) ** 0.5
+    bias = 0.1 * torch.randn(40, generator=g, device=dev)
+    y = tpu.packed_up_kernel(x, wt, bias, f=40, tm=8).float()
+    want = tpu.packed_up_plain(x, wt, bias, f=40, tm=8).float()
+    torch.testing.assert_close(y, want, rtol=0, atol=1e-2 * float(want.abs().max()))
+    assert torch.cuda.current_device() == 0

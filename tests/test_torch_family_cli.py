@@ -134,12 +134,16 @@ class TestWaveGANCLI:
 
     @pytest.mark.parametrize("cli", [wcli, mcli], ids=["wavegan", "melspecgan"])
     def test_what_it_refuses(self, tmp_path, monkeypatch, cli):
-        """Data parallelism is not ported; without --device cpu it needs a card."""
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            cli.main(["--mode", "train", "--n_devices", "2", *_args(tmp_path, MSG)])
+        """An --n_devices that does not divide the batch raises before any
+        rank starts (the data-parallel runs themselves are
+        tests/test_torch_parallel_dp.py's); infer runs as one process under
+        a launcher's WORLD_SIZE, as the JAX CLIs do; without --device cpu
+        the CLI needs a card."""
+        with pytest.raises(ValueError, match="divisible"):
+            cli.main(["--mode", "train", "--n_devices", "3", *_args(tmp_path, MSG)])
         monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="DDP"):
-            cli.main(["--mode", "infer", *_args(tmp_path, MSG)])
+        cli.main(["--mode", "infer", *_args(tmp_path, MSG)])
+        assert any((tmp_path / "infer").iterdir())
         monkeypatch.delenv("WORLD_SIZE")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -30,6 +30,8 @@ def _imported_modules(tree: ast.AST):
 
 def test_the_port_has_modules():
     assert "advoc_tpu_torch/ops/kernels/griffin_lim.py" in FILES
+    assert {f"advoc_tpu_torch/parallel/{m}.py"
+            for m in ("__init__", "mesh", "distributed", "halo", "mp_check")} <= set(FILES)
     assert len(FILES) >= 10
 
 

@@ -309,13 +309,14 @@ class TestContracts:
                                     dict(phase_engine="lws_block", mel_context=CH + 1),
                                     dict(mel_context=2), dict(mesh=object())])
     def test_unported_options_raise(self, kw):
-        """mesh is not ported and raises so. The lws engines and mel_context,
-        which raised the same way before, run now (test_torch_lws_streaming.py):
-        their cases hold the JAX package's ValueErrors instead, for an
-        unknown engine, a mel_context past the chunk, and mel_context on the
-        gl engine."""
+        """A mesh that is not a parallel.mesh.Mesh raises TypeError (the
+        mesh'd engine is tests/test_torch_parallel.py's). The lws engines and
+        mel_context, which raised before, run now
+        (test_torch_lws_streaming.py): their cases hold the JAX package's
+        ValueErrors instead, for an unknown engine, a mel_context past the
+        chunk, and mel_context on the gl engine."""
         if "mesh" in kw:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(TypeError, match="Mesh"):
                 self._sv(**kw)
             return
         with pytest.raises(ValueError, match="phase_engine|mel_context"):

@@ -117,13 +117,17 @@ class TestTrainEvaluate:
 
     @pytest.mark.parametrize("extra", [["--n_devices", "2"], []])
     def test_what_it_refuses(self, tmp_path, monkeypatch, extra):
-        """Data parallelism is not ported; without --device cpu it needs a card."""
+        """An --n_devices that does not divide the batch raises before any
+        rank starts (the data-parallel runs themselves are
+        tests/test_torch_parallel_dp.py's); infer runs as one process under
+        a launcher's WORLD_SIZE, as the JAX CLI does; without --device cpu
+        the CLI needs a card."""
         if extra:
-            with pytest.raises(NotImplementedError, match="queue A item 4"):
-                cli.main(["--mode", "train", *_args(tmp_path, *extra)])
+            with pytest.raises(ValueError, match="divisible"):
+                cli.main(["--mode", "train", *_args(tmp_path, extra[0], "3")])
             monkeypatch.setenv("WORLD_SIZE", "2")
-            with pytest.raises(NotImplementedError, match="DDP"):
-                cli.main(["--mode", "infer", *_args(tmp_path)])
+            (path,) = cli.main(["--mode", "infer", *_args(tmp_path)])
+            assert path.is_file()
             return
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):

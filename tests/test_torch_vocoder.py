@@ -230,12 +230,14 @@ class TestVocoder:
         dict(phase_method="lws_exact", phase_init="pghi"),
     ])
     def test_unported_options_raise(self, mel, kw):
-        """mesh is not ported and raises. phase_method="lws_exact", which
-        raised too before, now runs true LWS on the projected magnitude and
-        never the G-L kernel, even at phase_impl="kernel"; phase_init does
-        not reach it (the JAX Vocoder's order)."""
+        """A mesh that is not a parallel.mesh.Mesh raises TypeError (the
+        mesh'd Vocoder is tests/test_torch_parallel.py's). phase_method=
+        "lws_exact", which raised too before, now runs true LWS on the
+        projected magnitude and never the G-L kernel, even at
+        phase_impl="kernel"; phase_init does not reach it (the JAX Vocoder's
+        order)."""
         if "mesh" in kw:
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(TypeError, match="Mesh"):
                 Vocoder(device="cpu", **kw)
             return
         v = Vocoder(device="cpu", chunk_frames=64, gl_iters=2, phase_impl="kernel", **kw)
