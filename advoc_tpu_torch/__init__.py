@@ -13,5 +13,19 @@ whose melspecgan infer vocodes its samples through an advoc run. Each
 CLI trains data-parallel over ``--n_devices`` ranks, and both vocoders
 split their batch over a device mesh (:mod:`advoc_tpu_torch.parallel`).
 The package imports torch, numpy and scipy only, never JAX or
-``advoc_tpu``.
+``advoc_tpu``. ``python -m advoc_tpu_torch`` prints the entry points.
 """
+
+__version__ = "0.1.0"
+
+from advoc_tpu_torch.ops import spectral  # noqa: F401,E402
+from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS  # noqa: F401,E402
+
+
+def __getattr__(name):
+    # The vocoders load on first use, so `import advoc_tpu_torch` stays light.
+    if name in ("Vocoder", "StreamingVocoder"):
+        from advoc_tpu_torch import infer
+
+        return getattr(infer, name)
+    raise AttributeError(name)

@@ -1,15 +1,27 @@
-// Fast Griffin-Lim on Hopper's tensor cores: the split-bf16 iteration.
+// Fast Griffin-Lim on Hopper's tensor cores: the bf16 iterations.
 //
 // Replaces, with csrc/griffin_lim.cu, the Pallas kernels griffin_lim_pallas
 // (B1) and griffin_lim_pallas_tiled (B2) of advoc_tpu/ops/pallas/
-// griffin_lim.py, in the mode the JAX Vocoder runs by default,
-// loop_dtype="split_synth" (griffin_lim.py:175-274):
+// griffin_lim.py in its four bf16 loop modes (loop_dtype, _gl_maps and mm,
+// griffin_lim.py:64-124, :165-225): "split_synth", what the JAX Vocoder runs
+// by default, "split", "split_anal" and "bfloat16". Each product is either
+// split (a bf16 (hi, lo) pair of the f32 map, two bf16 products into one
+// f32 accumulator: ~16 mantissa bits of the map) or plain (the hi half
+// alone, bf16(map)), chosen for synthesis and analysis apart:
 //
-//   synthesis  y[r, s] = norm[j, s] * sum_{k<4} sum_f  bf16(re[r+3-k, f]) (inv_re_hi + inv_re_lo)_k[f, s]
-//                                                    + bf16(im[r+3-k, f]) (inv_im_hi + inv_im_lo)_k[f, s]
-//              with inv_hi = bf16(inv), inv_lo = bf16(inv - inv_hi) (_gl_maps._split)
+//   mode          synthesis  analysis
+//   split_synth   split      plain
+//   split         split      split
+//   split_anal    plain      split
+//   bfloat16      plain      plain
+//
+//   synthesis  y[r, s] = norm[j, s] * sum_{k<4} sum_f  bf16(re[r+3-k, f]) W_re,k[f, s]
+//                                                    + bf16(im[r+3-k, f]) W_im,k[f, s]
+//              with W = inv_hi + inv_lo (split) or inv_hi (plain),
+//              inv_hi = bf16(inv), inv_lo = bf16(inv - inv_hi) (_gl_maps._split),
 //              and f32 accumulation;
-//   analysis   acc[r, f] = sum_{k<4} bf16(y[r+k, :]) . bf16(fwd)_k[:, f], f32 accumulation,
+//   analysis   acc[r, f] = sum_{k<4} bf16(y[r+k, :]) . V_k[:, f], V = fwd_hi + fwd_lo
+//              (split) or fwd_hi (plain), f32 accumulation,
 //              then the f32 momentum step and the projection onto |mag|:
 //                u = acc + m (acc - pre);  pre = acc;
 //                (re, im) = u * mag * rsqrt(u_re^2 + u_im^2 + 1e-12).
@@ -32,20 +44,23 @@
 // warpgroups (64 rows each, wgmma.mma_async m64n128k16, bf16 in, f32
 // accumulator in registers) and one producer warp whose one thread keeps
 // TMA loads (cp.async.bulk.tensor, 128-byte swizzle) in flight into a ring
-// of shared-memory stages, each with a full and an empty mbarrier. Each
-// synthesis stage holds one A tile (re or im rows) and the hi and lo B
-// tiles of the same map rows: the A tile feeds two wgmmas into one
-// accumulator. The analysis tile's 128 columns are 64 bins of the real map
-// followed by the same 64 bins of the imaginary map, so each thread holds
+// of shared-memory stages, each with a full and an empty mbarrier. A
+// stage holds one A tile (re or im rows in synthesis, y rows in analysis)
+// and, for a split product, the hi and lo B tiles of the same map rows:
+// the A tile feeds two wgmmas into one accumulator. A plain product's
+// stage holds the A tile and the hi tile alone. Four stages of three 16 KB
+// tiles (192 KB) or of two (128 KB) fit the 227 KB a block may take. The
+// analysis tile's 128 columns are 64 bins of the real map followed by the
+// same 64 bins of the imaginary map, so each thread holds
 // acc_re and acc_im of the same (t, f) in its accumulator and the momentum
 // and projection epilogue stays in registers; its f32 inputs (mag, pre,
 // pim) are loaded into registers before the products, so their latency
 // hides behind the mainloop. Outputs are written by exactly one thread
 // each: no atomics, deterministic.
 //
-// Bound: the work is operations. Split synthesis does twice the products
-// of one synthesis, so one iteration at B=128 x 256 frames, F=512, hop 256
-// is ~0.21 TFLOP on the tensor cores (0.21 ms at 989 TFLOP/s dense bf16);
+// Bound: the work is operations. A split product does twice the products
+// of a plain one, so one split_synth iteration at B=128 x 256 frames,
+// F=512, hop 256 is ~0.21 TFLOP on the tensor cores (0.21 ms at 989 TFLOP/s dense bf16);
 // the carries move ~0.5 GB per iteration (bf16 re/im/y, f32 mag/pre/pim),
 // 0.15 ms at 3.35 TB/s. The design keeps the products on the tensor cores
 // and the epilogue's traffic to one read and one write of each carry. On
@@ -72,8 +87,7 @@ constexpr int kBK = 64;                     // bf16 per 128-byte swizzled row
 constexpr int kConsumers = 256;             // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
 constexpr int kTileBytes = kBM * kBK * 2;   // one A or B tile, 16 KB
-constexpr int kSynthStages = 4;             // 3 tiles a stage: 192 KB
-constexpr int kAnalStages = 4;              // 2 tiles a stage: 128 KB
+constexpr int kStages = 4;                  // 3 tiles a stage (split): 192 KB
 // One CTA per SM in both modes: synthesis for its shared memory, analysis
 // for the registers of its epilogue's prefetch (two 64-row CTAs per SM
 // measured no faster on an H100).
@@ -97,35 +111,32 @@ struct Args {
   float momentum;
 };
 
-template <int kMode>
-__host__ __device__ constexpr int stages() {
-  return kMode == kAnalyze ? kAnalStages : kSynthStages;
-}
-
-template <int kMode>
+// A stage: the A tile, then the map's hi tile and, for a split product, its lo tile.
+template <bool kSplit>
 __host__ __device__ constexpr int stage_bytes() {
-  return (kMode == kAnalyze ? 2 : 3) * kTileBytes;
+  return (kSplit ? 3 : 2) * kTileBytes;
 }
 
-template <int kMode>
+template <bool kSplit>
 __host__ __device__ constexpr int smem_bytes() {
-  return stages<kMode>() * stage_bytes<kMode>() + 1024 + 2 * stages<kMode>() * 8;
+  return kStages * stage_bytes<kSplit>() + 1024 + 2 * kStages * 8;
 }
+static_assert(smem_bytes<true>() <= 232448, "the split ring must fit a block's shared memory");
 
 // Synthesis (kMode 0, 1): map_a0/map_a1 are re/im (f_pad, M + 3), map_b the
-// split inverse maps (f_pad, hop_pad, 16), band (k, part, hi|lo). Grid
-// (hop_pad / 128, M / 128).
-// Analysis (kMode 2): map_a0 is y (hop_pad, M), map_b the forward maps
-// (4 hop_pad, 2 f_pad), rows interleaved 64 real and 64 imaginary bins.
-// Grid (f_pad / 64, M / 128).
-template <int kMode>
+// split inverse maps (f_pad, hop_pad, 16), band (k, part, hi|lo); a plain
+// synthesis reads the hi bands alone. Grid (hop_pad / 128, M / 128).
+// Analysis (kMode 2): map_a0 is y (hop_pad, M), map_b the forward maps'
+// hi halves (4 hop_pad, 2 f_pad), rows interleaved 64 real and 64
+// imaginary bins, and map_a1 their lo halves in the same layout (read by a
+// split analysis alone). Grid (f_pad / 64, M / 128).
+template <int kMode, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     gl_tc_kernel(const __grid_constant__ CUtensorMap map_a0,
                  const __grid_constant__ CUtensorMap map_a1,
                  const __grid_constant__ CUtensorMap map_b, const Args args) {
   constexpr bool kSynth = kMode != kAnalyze;
-  constexpr int kStages = stages<kMode>();
-  constexpr int kStageBytes = stage_bytes<kMode>();
+  constexpr int kStageBytes = stage_bytes<kSplit>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -165,12 +176,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_2d(dst, part ? &map_a1 : &map_a0, bar, f0, m0 + 3 - k);
         const int band = (k * 2 + part) * 2;
         tma_3d(dst + kTileBytes, &map_b, bar, f0, n0, band);
-        tma_3d(dst + 2 * kTileBytes, &map_b, bar, f0, n0, band + 1);
+        if constexpr (kSplit) tma_3d(dst + 2 * kTileBytes, &map_b, bar, f0, n0, band + 1);
       } else {
         const int k = it / nh;
         const int s0 = (it - k * nh) * kBK;
         tma_2d(dst, &map_a0, bar, s0, m0 + k);
         tma_2d(dst + kTileBytes, &map_b, bar, k * args.hop_pad + s0, n0);
+        if constexpr (kSplit)
+          tma_2d(dst + 2 * kTileBytes, &map_a1, bar, k * args.hop_pad + s0, n0);
       }
     }
     return;
@@ -223,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       wgmma_128(d, sw128_desc(a + kk * 32), sw128_desc(b0 + kk * 32));
-      if constexpr (kSynth)
+      if constexpr (kSplit)
         wgmma_128(d, sw128_desc(a + kk * 32), sw128_desc(b0 + kTileBytes + kk * 32));
     }
     wgmma_commit();
@@ -290,14 +303,14 @@ int encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int kMode>
+template <int kMode, bool kSplit>
 int launch(const CUtensorMap& a0, const CUtensorMap& a1, const CUtensorMap& b, const Args& args,
            dim3 grid, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<kMode>();
-  cudaError_t e = cudaFuncSetAttribute(gl_tc_kernel<kMode>,
+  constexpr int smem = smem_bytes<kSplit>();
+  cudaError_t e = cudaFuncSetAttribute(gl_tc_kernel<kMode, kSplit>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  gl_tc_kernel<kMode><<<grid, kThreads, smem, stream>>>(a0, a1, b, args);
+  gl_tc_kernel<kMode, kSplit><<<grid, kThreads, smem, stream>>>(a0, a1, b, args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,11 +318,11 @@ int launch(const CUtensorMap& a0, const CUtensorMap& a1, const CUtensorMap& b, c
 
 extern "C" {
 
-// One split synthesis: re/im (B(T+3) + 3, f_pad) bf16, ws (16, hop_pad,
-// f_pad) bf16, norm (T+3, hop_pad) f32 → out (B(T+3), hop_pad), bf16 or
-// (out_f32) f32.
+// One synthesis, split or plain: re/im (B(T+3) + 3, f_pad) bf16, ws (16,
+// hop_pad, f_pad) bf16, norm (T+3, hop_pad) f32 → out (B(T+3), hop_pad),
+// bf16 or (out_f32) f32.
 int gl_tc_synth(const void* re, const void* im, const void* ws, const float* norm, void* out,
-                int out_f32, int B, int T, int f_pad, int hop_pad, void* stream) {
+                int out_f32, int split, int B, int T, int f_pad, int hop_pad, void* stream) {
   Args args{};
   args.M = B * (T + 3);
   args.T = T;
@@ -331,17 +344,20 @@ int gl_tc_synth(const void* re, const void* im, const void* ws, const float* nor
   if (code != 0) return code;
   const dim3 grid((hop_pad + kBN - 1) / kBN, (args.M + kBM - 1) / kBM);
   const auto s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<kSynthF32>(m_re, m_im, m_ws, args, grid, s)
-                 : launch<kSynthBf16>(m_re, m_im, m_ws, args, grid, s);
+  if (split)
+    return out_f32 ? launch<kSynthF32, true>(m_re, m_im, m_ws, args, grid, s)
+                   : launch<kSynthBf16, true>(m_re, m_im, m_ws, args, grid, s);
+  return out_f32 ? launch<kSynthF32, false>(m_re, m_im, m_ws, args, grid, s)
+                 : launch<kSynthBf16, false>(m_re, m_im, m_ws, args, grid, s);
 }
 
-// One analysis with the momentum and projection epilogue: y (B(T+3),
-// hop_pad) bf16, wa (2 f_pad, 4 hop_pad) bf16; mag/pre/pim f32 and re/im
-// bf16 are (B(T+3) + 3, f_pad) carries; re32/im32 (same shape, f32) may
-// be null.
-int gl_tc_analyze(const void* y, const void* wa, const float* mag, float* pre, float* pim,
-                  void* re, void* im, float* re32, float* im32, int B, int T, int f_pad,
-                  int hop_pad, float momentum, void* stream) {
+// One analysis, split or plain, with the momentum and projection epilogue:
+// y (B(T+3), hop_pad) bf16, wa and (split) wa_lo (2 f_pad, 4 hop_pad) bf16;
+// mag/pre/pim f32 and re/im bf16 are (B(T+3) + 3, f_pad) carries;
+// re32/im32 (same shape, f32) may be null.
+int gl_tc_analyze(const void* y, const void* wa, const void* wa_lo, const float* mag, float* pre,
+                  float* pim, void* re, void* im, float* re32, float* im32, int split, int B,
+                  int T, int f_pad, int hop_pad, float momentum, void* stream) {
   Args args{};
   args.M = B * (T + 3);
   args.T = T;
@@ -355,7 +371,7 @@ int gl_tc_analyze(const void* y, const void* wa, const float* mag, float* pre, f
   args.re32 = re32;
   args.im32 = im32;
   args.momentum = momentum;
-  CUtensorMap m_y, m_wa;
+  CUtensorMap m_y, m_wa, m_lo;
   const cuuint64_t y_dims[2] = {static_cast<cuuint64_t>(hop_pad), static_cast<cuuint64_t>(args.M)};
   const cuuint64_t y_strides[1] = {static_cast<cuuint64_t>(hop_pad) * 2};
   const cuuint64_t wa_dims[2] = {static_cast<cuuint64_t>(4 * hop_pad),
@@ -363,9 +379,12 @@ int gl_tc_analyze(const void* y, const void* wa, const float* mag, float* pre, f
   const cuuint64_t wa_strides[1] = {static_cast<cuuint64_t>(4 * hop_pad) * 2};
   int code = encode(&m_y, y, 2, y_dims, y_strides);
   if (code == 0) code = encode(&m_wa, wa, 2, wa_dims, wa_strides);
+  if (code == 0 && split) code = encode(&m_lo, wa_lo, 2, wa_dims, wa_strides);
   if (code != 0) return code;
   const dim3 grid(f_pad / 64, (args.M + kBM - 1) / kBM);
-  return launch<kAnalyze>(m_y, m_y, m_wa, args, grid, static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  return split ? launch<kAnalyze, true>(m_y, m_lo, m_wa, args, grid, s)
+               : launch<kAnalyze, false>(m_y, m_y, m_wa, args, grid, s);
 }
 
 // Every library of csrc/ exports error_string (see ops/kernels/_build.py).

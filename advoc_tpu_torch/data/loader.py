@@ -26,10 +26,10 @@ import numpy as np
 import torch
 
 from advoc_tpu_torch.data import audioio
-from advoc_tpu_torch.data.synthetic import synthetic_speech
+from advoc_tpu_torch.data.synthetic import STRESS_KINDS, stress_fixture, synthetic_speech
 
-__all__ = ["DeviceCorpus", "decode_extract_and_batch", "device_prefetch", "hbm_data_step",
-           "mulaw8_encode", "synthetic_speech"]
+__all__ = ["STRESS_KINDS", "DeviceCorpus", "decode_extract_and_batch", "device_prefetch",
+           "hbm_data_step", "mulaw8_encode", "stress_fixture", "synthetic_speech"]
 
 
 def _slice_plan_eval(n_frames: int, slice_len: int, hop: int) -> list[int]:

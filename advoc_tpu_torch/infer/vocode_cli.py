@@ -9,8 +9,18 @@ frontend's output), or a wav or a directory of wavs to re-vocode
 (``scripts/bundle_to_torch.py`` converts a JAX one); without one it runs
 the heuristic pipeline; ``--train_dir`` takes the generator of a training
 run's latest checkpoint instead. Runs on the card unless ``--device cpu``.
-The port's copy of ``advoc_tpu.infer.vocode_cli``; the AOT options
-(``--aot``, ``--aot_export``) are not ported yet and raise.
+The port's copy of ``advoc_tpu.infer.vocode_cli``.
+
+AOT artifacts (:mod:`advoc_tpu_torch.infer.export`): ``--aot_export DIR``
+exports the loaded Vocoder at (1, bucket) for each input's bucketed length
+instead of vocoding (``--aot_allow_custom_calls`` accepts an artifact that
+records the port's kernels, which the card's default phase_impl does);
+``--aot DIR`` then serves from such a directory with no model code, one
+input at a time:
+
+    python -m advoc_tpu_torch.infer.vocode_cli --bundle B --input wavs/ \
+        --out_dir unused/ --aot_export aot/ --aot_allow_custom_calls
+    python -m advoc_tpu_torch.infer.vocode_cli --aot aot/ --input wavs/ --out_dir out/
 """
 
 from __future__ import annotations
@@ -35,10 +45,16 @@ def main(argv=None) -> dict:
     p.add_argument("--train_dir", default=None,
                    help="a training run: its latest checkpoint's generator (alternative "
                         "to --bundle)")
-    p.add_argument("--aot", default=None, help="not ported yet (ROADMAP.md), raises")
-    p.add_argument("--aot_export", default=None, help="not ported yet (ROADMAP.md), raises")
+    p.add_argument("--aot", default=None,
+                   help="serve from an AOT artifact dir (infer.export_vocoder output): no "
+                        "model code; overrides --bundle/--train_dir")
+    p.add_argument("--aot_export", default=None,
+                   help="instead of vocoding, export the loaded Vocoder as AOT artifacts "
+                        "into this dir (batch 1, each input's bucketed length)")
     p.add_argument("--aot_allow_custom_calls", action="store_true",
-                   help="an --aot_export option: not ported yet, raises")
+                   help="--aot_export: accept an artifact that records the port's kernels "
+                        "(advoc:: operators; runs where they are registered: the default "
+                        "phase_impl on the card)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     p.add_argument("--model_size", choices=["full", "small"], default=None,
@@ -61,13 +77,55 @@ def main(argv=None) -> dict:
     p.add_argument("--longform_tile", type=int, default=1024,
                    help="longform tile frames (a multiple of the model chunk)")
     args = p.parse_args(argv)
-    if args.aot or args.aot_export or args.aot_allow_custom_calls:
-        raise NotImplementedError(
-            "AOT artifacts are not ported yet (ROADMAP.md queue A, the export analog)")
+    if args.aot and args.aot_export:
+        p.error("--aot serves an existing artifact; it cannot be combined with --aot_export "
+                "(export from --bundle/--train_dir)")
+    if args.aot and args.longform:
+        p.error("--longform needs the live Vocoder (AOT artifacts are fixed-shape by design)")
     from advoc_tpu_torch.data import audioio
-    from advoc_tpu_torch.infer import Vocoder
     from advoc_tpu_torch.ops import spectral
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
+
+    if args.aot:  # no model code: the artifact is self-contained
+        from advoc_tpu_torch.infer.export import ExportedVocoder
+
+        voc = ExportedVocoder(args.aot, device=args.device)
+        print(f"[vocode] serving AOT artifacts {voc.shapes()} from {args.aot}", flush=True)
+    else:
+        voc = _live_vocoder(args, P)
+    dev = voc.device
+
+    # --- gather mels ---
+    inp = pathlib.Path(args.input)
+    if inp.suffix == ".npy":
+        mels = np.load(inp)
+        if mels.ndim == 2:
+            mels = mels[None]
+        names = [f"{inp.stem}_{i}" for i in range(len(mels))]
+        mels = [np.asarray(m, np.float32) for m in mels]
+    else:
+        wav_paths = sorted(inp.rglob("*.wav")) if inp.is_dir() else [inp]
+        mels, names = [], []
+        for wp in wav_paths:
+            wav = torch.tensor(audioio.decode_audio(wp, P.sample_rate), device=dev)
+            mels.append(spectral.waveform_to_r9y9_melspec(wav, P).cpu().numpy())
+            names.append(wp.stem)
+
+    if args.aot_export:
+        from advoc_tpu_torch.infer.export import export_vocoder
+
+        shapes = sorted({(1, voc.bucket(m.shape[0])) for m in mels})
+        man = export_vocoder(voc, shapes, args.aot_export,
+                             allow_custom_calls=args.aot_allow_custom_calls)
+        print(f"[vocode] exported {len(man['artifacts'])} artifact(s) {shapes} → "
+              f"{args.aot_export}", flush=True)
+        return {"files": 0, "audio_s": 0.0, "seconds": 0.0, "exported": man}
+    return _vocode(args, voc, mels, names, P)
+
+
+def _live_vocoder(args, P):
+    """The Vocoder of --bundle, --train_dir or the heuristic pipeline."""
+    from advoc_tpu_torch.infer import Vocoder
     from advoc_tpu_torch.train.checkpoint import (
         generator_config,
         load_generator,
@@ -87,26 +145,15 @@ def main(argv=None) -> dict:
     else:
         cfg = generator_config({}, args.model_size, args.model_overrides)
         print("[vocode] no model given — heuristic pipeline", flush=True)
-    voc = Vocoder(generator, params=P, chunk_frames=cfg.n_frames, gl_iters=args.gl_iters,
-                  mel_projection=args.mel_projection, phase_impl=args.phase_impl,
-                  device=args.device)
-    dev = voc.device
+    return Vocoder(generator, params=P, chunk_frames=cfg.n_frames, gl_iters=args.gl_iters,
+                   mel_projection=args.mel_projection, phase_impl=args.phase_impl,
+                   device=args.device)
 
-    # --- gather mels ---
-    inp = pathlib.Path(args.input)
-    if inp.suffix == ".npy":
-        mels = np.load(inp)
-        if mels.ndim == 2:
-            mels = mels[None]
-        names = [f"{inp.stem}_{i}" for i in range(len(mels))]
-        mels = [np.asarray(m, np.float32) for m in mels]
-    else:
-        wav_paths = sorted(inp.rglob("*.wav")) if inp.is_dir() else [inp]
-        mels, names = [], []
-        for wp in wav_paths:
-            wav = torch.tensor(audioio.decode_audio(wp, P.sample_rate), device=dev)
-            mels.append(spectral.waveform_to_r9y9_melspec(wav, P).cpu().numpy())
-            names.append(wp.stem)
+
+def _vocode(args, voc, mels: list, names: list, P) -> dict:
+    """Vocode ``mels`` into --out_dir: one at a time (--longform, --aot,
+    --batch 1 or a single input), else in --batch groups per length bucket."""
+    from advoc_tpu_torch.data import audioio
 
     out_dir = pathlib.Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -119,8 +166,9 @@ def main(argv=None) -> dict:
               f"→ {done_audio / dt:.0f}× realtime", flush=True)
         return {"files": len(mels), "audio_s": done_audio, "seconds": dt}
 
-    if args.longform or args.batch <= 1 or len(mels) == 1:
-        # One input at a time; the first call (warmup) stays out of the clock.
+    if args.longform or args.aot or args.batch <= 1 or len(mels) == 1:
+        # One input at a time (AOT artifacts are exported at batch 1); the
+        # first call (warmup) stays out of the clock.
         t_start, t_audio0 = None, 0.0
         for mel, name in zip(mels, names):
             if args.longform:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from advoc_tpu_torch.ops import spectral
+from advoc_tpu_torch.ops.cache import device_cache
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 from advoc_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
@@ -46,6 +47,13 @@ def _crossfade_weights(chunk: int, overlap: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
+@device_cache(maxsize=16)
+def _crossfade_on(chunk: int, overlap: int, device: torch.device) -> Tensor:
+    """:func:`_crossfade_weights` as (1, chunk, 1) on ``device``, moved once:
+    a host copy per call waits."""
+    return torch.as_tensor(_crossfade_weights(chunk, overlap), device=device)[None, :, None]
+
+
 def chunked_generator_apply(generator, chunk: int, overlap: int, t_frames: int):
     """The generator over ``chunk``-frame windows with dB-domain crossfade.
 
@@ -54,15 +62,10 @@ def chunked_generator_apply(generator, chunk: int, overlap: int, t_frames: int):
     by the crossfade weights (normalized, so the fade cancels at the edges).
     """
     starts = [int(s) for s in _chunk_windows(t_frames, chunk, chunk - overlap)]
-    weights_np = _crossfade_weights(chunk, overlap)
-    on_device: dict[torch.device, Tensor] = {}  # moved once: a host copy per call waits
 
     def apply(est_norm: Tensor) -> Tensor:
         b, _, n_bins = est_norm.shape
-        weights = on_device.get(est_norm.device)
-        if weights is None:
-            weights = on_device[est_norm.device] = torch.as_tensor(
-                weights_np, device=est_norm.device)[None, :, None]
+        weights = _crossfade_on(chunk, overlap, est_norm.device)
         chunks = torch.stack([est_norm[:, s : s + chunk] for s in starts], dim=1)
         nc = len(starts)
         repaired = generator(chunks.reshape(b * nc, chunk, n_bins)).reshape(

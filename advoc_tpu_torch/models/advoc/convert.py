@@ -16,7 +16,9 @@ here for the advoc models. It imports nothing of JAX. Kernel layouts:
 * ``GroupNorm`` scale/bias → ``weight``/``bias``.
 
 Under ``fast_head`` the tree has no ``up{depth-1}`` and ``head`` is the 3×3
-conv to 4·freq_pack outputs; the same layouts apply.
+conv to 4·freq_pack outputs; the same layouts apply. Under the
+"pixelshuffle", "subpixel" and "resize" decoders each ``up{i}/conv`` is a
+``Conv`` (3×3 to 4F, 2×2 to 4F, 4×4 to F) and takes the ``Conv`` layout.
 
 It raises on a missing or unexpected leaf and on any shape mismatch.
 """
@@ -48,8 +50,10 @@ def _name_map(cfg: AdvocConfig) -> dict[str, tuple[str, str]]:
         if i > 0:
             norm(f"down{i}/norm", f"downs.{i}.norm")
     conv("bottleneck", "bottleneck", "conv")
+    # Only the default decoder's up convs are transposed convolutions.
+    up_layout = "conv_transpose" if cfg.upsample == "convtranspose" else "conv"
     for i in range(cfg.depth - 1 if cfg.fast_head else cfg.depth):
-        conv(f"up{i}/conv", f"ups.{i}.conv", "conv_transpose")
+        conv(f"up{i}/conv", f"ups.{i}.conv", up_layout)
         norm(f"up{i}/norm", f"ups.{i}.norm")
     conv("head", "head", "conv")
     return m

@@ -1,7 +1,11 @@
 """advoc U-Net generator in PyTorch: heuristic magnitude → repaired magnitude.
 
-The port of ``advoc_tpu.models.advoc.model`` at its default decoder (k4/s2
-transposed convolutions). Layout is NCHW with the frequency bins packed into
+The port of ``advoc_tpu.models.advoc.model``, every decoder mode of
+``AdvocConfig.upsample``: k4/s2 transposed convolutions (the default),
+"pixelshuffle" (3×3 conv to 4F channels, then depth-to-space),
+"subpixel" (one k2/s1 conv to 4F channels padded by one on each side and
+the parity interleave: exactly the transposed convolution's map) and
+"resize" (nearest ×2, then a 4×4 SAME conv). Layout is NCHW with the frequency bins packed into
 channels: the (B, T, 512) body of the normalized-dB magnitude becomes
 (B, freq_pack, T, 512/freq_pack), bin = w·freq_pack + c, as the JAX
 package's NHWC (B, T, 512/p, p). The Nyquist bin passes through unchanged.
@@ -19,6 +23,12 @@ the families' shared :mod:`advoc_tpu_torch.models.layers`:
   :func:`~advoc_tpu_torch.models.layers.conv_transpose_same`.
 * ``GroupNorm`` has eps 1e-6 (torch's default is 1e-5), f32 statistics with
   var = E[x²] − E[x]², and its output in the compute dtype.
+* An even ``head_kernel`` k pads as flax's SAME: (k − 1) // 2 before and
+  k // 2 after (:func:`~advoc_tpu_torch.models.layers.conv_same`).
+
+``forward(est, truncate_after=name)`` is the JAX profiling hook: it
+returns ``mean(x)`` in float32 right after the named stage (``down{i}``,
+``bottleneck``, ``up{i}``) and runs nothing after it.
 
 ``AdvocConfig(packed_tail=True)`` computes the finest decoder level and the
 1×1 head in the packed layout (B, T, W, 2f) of the JAX package
@@ -42,6 +52,7 @@ from torch import nn
 from advoc_tpu_torch.models.layers import (
     DTYPES,
     GroupNorm,
+    _conv,
     conv_same,
     conv_transpose_same,
     flax_init,
@@ -55,9 +66,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class AdvocConfig:
     """Hyperparameters of the advoc GAN; the JAX package's fields and
-    defaults. Of the generator's modes the default one, ``packed_tail`` and
-    ``fast_head`` are ported: the others raise ``NotImplementedError``
-    (ROADMAP.md queue A)."""
+    defaults, every generator mode included."""
 
     n_frames: int = 256
     n_freq: int = 513
@@ -99,20 +108,49 @@ class _Down(nn.Module):
 
 
 class _Up(nn.Module):
-    """×2 k4/s2 transposed conv → GroupNorm → ReLU."""
+    """×2 upsampling (``cfg.upsample``) → GroupNorm → ReLU."""
 
     def __init__(self, cin: int, features: int, cfg: AdvocConfig):
         super().__init__()
-        if cfg.upsample != "convtranspose":
-            raise NotImplementedError(
-                f"upsample={cfg.upsample!r} is not ported yet (ROADMAP.md queue A)"
-            )
-        self.dtype = cfg.compute_dtype
-        self.conv = nn.ConvTranspose2d(cin, features, 4, stride=2, padding=1)
+        self.dtype, self.mode, self.features = cfg.compute_dtype, cfg.upsample, features
+        if self.mode == "convtranspose":
+            self.conv = nn.ConvTranspose2d(cin, features, 4, stride=2, padding=1)
+        elif self.mode == "pixelshuffle":
+            self.conv = nn.Conv2d(cin, 4 * features, 3)
+        elif self.mode == "subpixel":
+            self.conv = nn.Conv2d(cin, 4 * features, 2)
+        elif self.mode == "resize":
+            self.conv = nn.Conv2d(cin, features, 4)
+        else:
+            raise ValueError(f"unknown upsample mode {self.mode!r}")
         self.norm = GroupNorm(cfg.norm_groups, features, self.dtype)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.relu(self.norm(conv_transpose_same(x, self.conv, self.dtype)))
+        f, dt = self.features, self.dtype
+        if self.mode == "convtranspose":
+            x = conv_transpose_same(x, self.conv, dt)
+        elif self.mode == "pixelshuffle":
+            # Depth-to-space: channel (dy·2 + dx)·F + c of pixel (h, w) is
+            # output pixel (2h + dy, 2w + dx), channel c (flax's reshape).
+            z = conv_same(x, self.conv, dt)
+            b, _, h, w = z.shape
+            x = z.reshape(b, 2, 2, f, h, w).permute(0, 3, 4, 1, 5, 2).reshape(b, f, 2 * h, 2 * w)
+        elif self.mode == "subpixel":
+            # Channel (p·2 + q)·F + c of the k2 window at (m, n) (windows
+            # −1 … H−1, so one row and column of padding on each side) is
+            # output pixel (2m + p, 2n + q) of the transposed convolution,
+            # the p = 0 rows from windows {m − 1, m}, p = 1 from {m, m + 1}.
+            z = _conv(F.conv2d, x, self.conv, dt, padding=1)
+            b, _, h1, w1 = z.shape
+            h, w = h1 - 1, w1 - 1
+            z = z.reshape(b, 2, 2, f, h1, w1)
+            top = torch.stack([z[:, 0, 0, :, :h, :w], z[:, 0, 1, :, :h, 1:]], dim=-1)
+            bot = torch.stack([z[:, 1, 0, :, 1:, :w], z[:, 1, 1, :, 1:, 1:]], dim=-1)
+            x = torch.stack([top, bot], dim=3).reshape(b, f, 2 * h, 2 * w)
+        else:  # resize: nearest ×2 (each pixel repeated, as jax.image.resize), 4×4 SAME conv
+            x = conv_same(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3),
+                          self.conv, dt)
+        return F.relu(self.norm(x))
 
 
 class _PackedTailUp(nn.Module):
@@ -211,20 +249,18 @@ class AdvocGenerator(nn.Module):
             self.head = nn.Conv2d(x_ch + feats[0], 4 * p, 3, padding=1)
             return
         k = cfg.head_kernel
-        if k % 2 == 0:
-            raise NotImplementedError(
-                f"head_kernel={k}: flax pads an even kernel asymmetrically; not ported yet"
-            )
-        self.head = nn.Conv2d(x_ch, p, k, padding=k // 2)
+        self.head = nn.Conv2d(x_ch, p, k)  # conv_same pads it as flax's SAME
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initializers (:func:`~advoc_tpu_torch.models.layers.flax_init`)."""
         flax_init(self, generator)
 
     def forward(self, est: Tensor, truncate_after: str | None = None) -> Tensor:
-        if truncate_after is not None:
-            raise NotImplementedError("truncate_after is not ported (profiling hook)")
         cfg = self.cfg
+
+        def cut(x: Tensor, name: str) -> Tensor | None:
+            return x.to(torch.float32).mean() if name == truncate_after else None
+
         if est.shape[-1] != cfg.n_freq:
             raise ValueError(f"expected {cfg.n_freq} bins, got {est.shape[-1]}")
         dt = cfg.compute_dtype
@@ -235,10 +271,14 @@ class AdvocGenerator(nn.Module):
         x = (body * 2.0 - 1.0).to(dt)
         x = x.reshape(b, t, n_bins // p, p).permute(0, 3, 1, 2)  # (B, p, T, W)
         skips = []
-        for down in self.downs:
+        for i, down in enumerate(self.downs):
             x = down(x)
             skips.append(x)
+            if (c := cut(x, f"down{i}")) is not None:
+                return c
         x = F.relu(conv_same(x, self.bottleneck, dt))
+        if (c := cut(x, "bottleneck")) is not None:
+            return c
         for i, up in enumerate(self.ups):
             skip = skips[len(skips) - 1 - i].to(x.dtype)
             if isinstance(up, _PackedTailUp):
@@ -249,6 +289,8 @@ class AdvocGenerator(nn.Module):
                 x = up(cat)
             else:
                 x = up(torch.cat([x, skip], dim=1))
+            if (c := cut(x, f"up{i}")) is not None:
+                return c
         if cfg.fast_head:
             d = conv_same(torch.cat([x, skips[0].to(x.dtype)], dim=1), self.head, dt)
             h, w = d.shape[2:]

@@ -7,7 +7,8 @@ keyed by a hash of the sources and the compile command, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Only the repository's own
 sources are built. :func:`check` turns a launch's error code into an
 exception; :func:`refuse_grad` refuses a call that autograd would record
-through a kernel without a backward.
+through a kernel without a backward; :func:`traced` tells a wrapper to call
+its registered operator (:mod:`.registered`) instead of launching.
 """
 
 from __future__ import annotations
@@ -112,3 +113,11 @@ def refuse_grad(tensors, kernel: str, instead: str) -> None:
         raise NotImplementedError(
             f"{kernel} runs a CUDA kernel that has no backward: call it under no_grad or "
             f"on tensors that need no gradient, or differentiate {instead}")
+
+
+def traced() -> bool:
+    """True while the caller is traced (``torch.export``, ``torch.compile``;
+    ``torch.compiler.is_compiling()`` reports both): a wrapper then calls
+    its ``torch.ops.advoc`` operator, which a trace can record, instead of
+    a ctypes launch."""
+    return torch.compiler.is_compiling()

@@ -198,32 +198,47 @@ def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> T
     ``custom_vjp``), so under grad a ``wav`` that requires grad raises
     rather than lose its gradient: differentiate the STFT path
     (``spectral.waveform_to_r9y9_melspec(impl="xla")``). On a CPU tensor: the
-    plain version, :func:`fused_melspec_plain`, differentiable.
+    plain version, :func:`fused_melspec_plain`, differentiable. Traced
+    (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
+    registered operator ``advoc::fused_melspec``.
     """
     _check(wav, params)
+    hop, (lead, length) = params.hop_length, (wav.shape[:-1], wav.shape[-1])
+    if _build.traced():
+        from advoc_tpu_torch.ops.kernels import registered
+
+        out = registered.fused_melspec_op(wav.reshape(-1, length).contiguous(),
+                                          registered.params_list(params))
+        return out.reshape(lead + out.shape[1:])
     if not wav.is_cuda:
         return fused_melspec_plain(wav, params)
     _build.refuse_grad(wav, "fused_melspec_kernel", 'the STFT path, impl="xla"')
-    if wav.dtype != torch.float32:
+    out = _launch(wav.reshape(-1, length).contiguous(), params)
+    return out.reshape(lead + out.shape[1:])
+
+
+def _launch(x: Tensor, params: AudioParams) -> Tensor:
+    """The kernel on a contiguous (B, L) CUDA tensor (``advoc::fused_melspec``'s
+    CUDA implementation, and the eager wrapper's)."""
+    if x.dtype != torch.float32:
         raise ValueError("fused_melspec_kernel needs a float32 waveform")
     if params.n_mels > 80:
         raise ValueError("fused_melspec_kernel needs n_mels <= 80")
-    hop, (lead, length) = params.hop_length, (wav.shape[:-1], wav.shape[-1])
-    x = wav.reshape(-1, length).contiguous()
+    hop, length = params.hop_length, x.shape[-1]
     b, n = x.shape[0], length // hop
     if b * max(length, n * params.n_mels) >= 2**31:
         raise ValueError("fused_melspec_kernel indexes with 32-bit offsets")
-    consts = _tc_consts_on(params, wav.device)
-    out = torch.empty((b, n, params.n_mels), dtype=torch.float32, device=wav.device)
-    with torch.cuda.device(wav.device):  # the launcher launches on the current device
+    consts = _tc_consts_on(params, x.device)
+    out = torch.empty((b, n, params.n_mels), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):  # the launcher launches on the current device
         code = _lib().fused_melspec(
             x.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(),
             b, length, hop, params.n_mels, params.amp_floor, params.ref_level_db,
-            params.min_level_db, torch.cuda.current_stream(wav.device).cuda_stream,
+            params.min_level_db, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(_lib(), code, "fused_melspec")
     fused_melspec_kernel.launches += 1
-    return out.reshape(lead + (n, params.n_mels))
+    return out
 
 
 fused_melspec_kernel.launches = 0

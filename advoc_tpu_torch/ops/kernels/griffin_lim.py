@@ -19,21 +19,25 @@ i.e. (B, T·hop) samples. Rows outside [0, T) have zero magnitude and norm 0
 in B2's halos, so iterating on the whole utterance at once is B2's function
 as well as B1's, for any T, with or without ``init_phase``.
 
-Two precisions, the JAX package's two modes (``precision``):
+The JAX package's five loop modes (``loop_dtype``; ``precision`` names the
+two that ``spectral.griffin_lim`` selects, "highest" = "float32" and
+"default" = "split_synth"):
 
-* ``"highest"``: ``loop_dtype="float32"`` at HIGHEST, fp32 products
-  throughout. ``csrc/griffin_lim.cu``: two GEMM-shaped launches an
-  iteration over all SMs, ``gl_synth_ola`` and ``gl_analyze_project``
-  (fused momentum and projection epilogue), fp32 FMA on the CUDA cores.
-* ``"default"``: ``loop_dtype="split_synth"``, what the JAX Vocoder runs by
-  default. Synthesis rounds ``re``/``im`` to bf16 against bf16 (hi, lo)
-  pairs of the inverse maps, analysis rounds ``y`` and the forward maps to
-  bf16, every product accumulates in f32; the momentum and projection stay
-  f32. ``csrc/griffin_lim_tc.cu``: the same two launches an iteration on
-  the tensor cores (``wgmma`` fed by TMA). The final synthesis follows
-  JAX's dispatch: split for T ≤ 256 without ``init_phase`` (B1), else the
-  fp32 synthesis of the f32 spectrum (B2's HIGHEST tail), one launch of
-  ``gl_synth_ola``.
+* ``"float32"``: fp32 products throughout (JAX's HIGHEST).
+  ``csrc/griffin_lim.cu``: two GEMM-shaped launches an iteration over all
+  SMs, ``gl_synth_ola`` and ``gl_analyze_project`` (fused momentum and
+  projection epilogue), fp32 FMA on the CUDA cores.
+* ``"split_synth"``, ``"split"``, ``"split_anal"``, ``"bfloat16"``:
+  synthesis rounds ``re``/``im`` to bf16 and analysis rounds ``y`` to bf16;
+  each side's maps are either a bf16 (hi, lo) pair of the f32 map, two
+  products (split), or bf16 alone (plain): split_synth splits the inverse
+  maps, split both, split_anal the forward maps, bfloat16 neither. Every
+  product accumulates in f32; the momentum and projection stay f32.
+  ``csrc/griffin_lim_tc.cu``: the same two launches an iteration on the
+  tensor cores (``wgmma`` fed by TMA), the split flag a template argument
+  of each. The final synthesis follows JAX's dispatch: the loop's synthesis
+  for T ≤ 256 without ``init_phase`` (B1), else the fp32 synthesis of the
+  f32 spectrum (B2's HIGHEST tail), one launch of ``gl_synth_ola``.
 
 The kernels take any ``n_fft == 4 · hop`` (hop is a launch argument), the
 same AudioParams the Pallas kernels take.
@@ -63,8 +67,12 @@ from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 Tensor = torch.Tensor
 
 PRECISIONS = ("default", "highest")
+LOOP_DTYPES = ("float32", "split_synth", "split", "split_anal", "bfloat16")
+# (split analysis, split synthesis) of each bf16 mode (griffin_lim.py:165-172).
+_SPLIT = {"split_synth": (False, True), "split": (True, True),
+          "split_anal": (True, False), "bfloat16": (False, False)}
 # The JAX single-tile kernel's largest T (griffin_lim.py:60): up to it, and
-# without an init phase, the split mode's final synthesis is split too.
+# without an init phase, the final synthesis is the loop mode's own.
 MAX_SINGLE_TILE_FRAMES = 256
 
 
@@ -121,6 +129,14 @@ def _split_maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple
     return (_bf16(fwd_re), _bf16(fwd_im), *_split(inv_re), *_split(inv_im))
 
 
+@device_cache(maxsize=8)
+def _fwd_lo(params: AudioParams, n_bins: int, device: torch.device) -> tuple[Tensor, Tensor]:
+    """The lo halves of the forward maps' (hi, lo) pairs; the hi halves are
+    :func:`_split_maps`' bf16 fwd_re and fwd_im."""
+    fwd_re, fwd_im, _, _ = _maps(params, n_bins, device)
+    return _split(fwd_re)[1], _split(fwd_im)[1]
+
+
 def _init_carries(mag: Tensor, init_phase) -> tuple[Tensor, Tensor]:
     if init_phase is None:
         return mag.clone(), torch.zeros_like(mag)
@@ -137,14 +153,21 @@ def _check_shapes(mag: Tensor, params: AudioParams) -> None:
         raise ValueError("fast G-L needs n_fft == 4 · hop_length")
 
 
-def _check_precision(precision: str) -> None:
+def loop_mode(precision: str = "highest", loop_dtype: str | None = None) -> str:
+    """The loop mode a call runs: ``loop_dtype`` where given, else the one
+    ``precision`` names ("highest" → "float32", "default" → "split_synth")."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if loop_dtype is None:
+        return "float32" if precision == "highest" else "split_synth"
+    if loop_dtype not in LOOP_DTYPES:
+        raise ValueError(f"loop_dtype must be one of {LOOP_DTYPES}, got {loop_dtype!r}")
+    return loop_dtype
 
 
-def _split_final(t_frames: int, init_phase) -> bool:
-    """JAX's dispatch (griffin_lim.py:406-418): B1's final synthesis is
-    split; B2's (T > 256 or an init phase) is f32 at HIGHEST."""
+def _loop_final(t_frames: int, init_phase) -> bool:
+    """JAX's dispatch (griffin_lim.py:406-418): B1's final synthesis is the
+    loop's own; B2's (T > 256 or an init phase) is f32 at HIGHEST."""
     return t_frames <= MAX_SINGLE_TILE_FRAMES and init_phase is None
 
 
@@ -155,18 +178,20 @@ def griffin_lim_plain(
     init_phase: tuple[Tensor, Tensor] | None = None,
     params: AudioParams = DEFAULT_PARAMS,
     precision: str = "highest",
+    loop_dtype: str | None = None,
 ) -> Tensor:
     """The kernels' function in plain PyTorch: (B, T, F) → (B, T·hop).
 
     Batched matmuls in frames form: frames = re @ inv_re + im @ inv_im, a
     4-block overlap-add times the NOLA norm, four banded analysis matmuls,
-    then the kernels' momentum and projection epilogue. ``"default"`` rounds
-    the operands as the split mode does (module docstring) and keeps every
-    matmul fp32: a product of two bf16 values is exact in fp32. The CPU path
-    of :func:`griffin_lim_kernel` and the reference the kernels are held to.
+    then the kernels' momentum and projection epilogue. The bf16 modes
+    (:func:`loop_mode`) round the operands as JAX's do (module docstring)
+    and keep every matmul fp32, one for each map half: a product of two
+    bf16 values is exact in fp32. The CPU path of
+    :func:`griffin_lim_kernel` and the reference the kernels are held to.
     """
     _check_shapes(mag, params)
-    _check_precision(precision)
+    mode = loop_mode(precision, loop_dtype)
     if mag.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("griffin_lim_plain needs allow_tf32 False (true fp32)")
     mag = mag.to(torch.float32)
@@ -185,30 +210,40 @@ def griffin_lim_plain(
     def synth_f32(re: Tensor, im: Tensor) -> Tensor:
         return ola(re @ inv_re + im @ inv_im)
 
-    if precision == "highest":
+    fwd = ((fwd_re,), (fwd_im,))
+    if mode == "float32":
         synth, cast = synth_f32, (lambda x: x)
     else:
-        fwd_re, fwd_im, re_hi, re_lo, im_hi, im_lo = _split_maps(params, f, mag.device)
+        split_anal, split_synth = _SPLIT[mode]
+        fre, fim, re_hi, re_lo, im_hi, im_lo = _split_maps(params, f, mag.device)
+        fwd = ((fre,), (fim,))
+        if split_anal:
+            fre_lo, fim_lo = _fwd_lo(params, f, mag.device)
+            fwd = ((fre, fre_lo), (fim, fim_lo))
 
         def synth(re: Tensor, im: Tensor) -> Tensor:
             rb, ib = _bf16(re), _bf16(im)
-            return ola(rb @ re_hi + rb @ re_lo + ib @ im_hi + ib @ im_lo)
+            if split_synth:
+                return ola(rb @ re_hi + rb @ re_lo + ib @ im_hi + ib @ im_lo)
+            return ola(rb @ re_hi + ib @ im_hi)
 
         cast = _bf16
+
+    def analyze(y: Tensor, maps: tuple) -> Tensor:
+        return sum(y[:, k : k + t] @ m[k * hop : (k + 1) * hop] for k in range(r) for m in maps)
 
     re, im = _init_carries(mag, init_phase)
     pre, pim = re, im
     for i in range(n_iters):
         y = cast(synth(re, im))
-        ar = sum(y[:, k : k + t] @ fwd_re[k * hop : (k + 1) * hop] for k in range(r))
-        ai = sum(y[:, k : k + t] @ fwd_im[k * hop : (k + 1) * hop] for k in range(r))
+        ar, ai = analyze(y, fwd[0]), analyze(y, fwd[1])
         m = 0.0 if i == 0 else momentum
         ur = ar + m * (ar - pre)
         ui = ai + m * (ai - pim)
         pre, pim = ar, ai
         scale = mag * torch.rsqrt(ur * ur + ui * ui + 1e-12)
         re, im = ur * scale, ui * scale
-    if precision == "default" and not _split_final(t, init_phase):
+    if not _loop_final(t, init_phase):
         synth = synth_f32
     pad_blocks = (params.n_fft // 2) // hop
     return synth(re, im)[:, pad_blocks : pad_blocks + t].reshape(b, t * hop)
@@ -229,9 +264,9 @@ def _lib() -> ctypes.CDLL:
 def _lib_tc() -> ctypes.CDLL:
     lib = _build.load("griffin_lim_tc")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gl_tc_synth.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.gl_tc_synth.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.gl_tc_synth.restype = i
-    lib.gl_tc_analyze.argtypes = [p] * 9 + [i, i, i, i, ctypes.c_float, p]
+    lib.gl_tc_analyze.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float, p]
     lib.gl_tc_analyze.restype = i
     return lib
 
@@ -241,15 +276,18 @@ def _pad64(n: int) -> int:
 
 
 @device_cache(maxsize=8)
-def _tc_maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple[Tensor, Tensor]:
+def _tc_maps(params: AudioParams, n_bins: int,
+             device: torch.device) -> tuple[Tensor, Tensor, Tensor]:
     """The tensor-core kernel's bf16 maps, zero-padded to F_pad and hop_pad
-    (multiples of 64), both K-major:
+    (multiples of 64), all K-major:
 
     * ``ws`` (4, 2, 2, hop_pad, F_pad): ws[k, part, hl, s, f] is the hi (hl 0)
       or lo (hl 1) half of inv_re (part 0) or inv_im (part 1) at [f, k·hop + s];
-    * ``wa`` (F_pad / 64, 2, 64, 4, hop_pad): wa[g, part, c, k, s] is
-      bf16(fwd_re or fwd_im)[k·hop + s, 64 g + c], so each 128-row tile holds
-      64 real bins then the same 64 imaginary ones.
+      a plain synthesis reads the hi halves alone;
+    * ``wa`` (F_pad / 64, 2, 64, 4, hop_pad): wa[g, part, c, k, s] is the hi
+      half, bf16(fwd_re or fwd_im), at [k·hop + s, 64 g + c], so each 128-row
+      tile holds 64 real bins then the same 64 imaginary ones;
+    * ``wa_lo``: the lo halves in ``wa``'s layout, read by a split analysis.
     """
     hop, f = params.hop_length, n_bins
     fp, hp = _pad64(f), _pad64(hop)
@@ -258,11 +296,16 @@ def _tc_maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple[Te
     for part, pair in enumerate(((re_hi, re_lo), (im_hi, im_lo))):
         for hl, m in enumerate(pair):
             ws[:, part, hl, :hop, :f] = m.reshape(f, 4, hop).permute(1, 2, 0)
-    wa = torch.zeros((fp, 2, 4, hp), dtype=torch.float32, device=device)  # (bin, part, k, s)
-    for part, m in enumerate((fwd_re, fwd_im)):
-        wa[:f, part, :, :hop] = m.reshape(4, hop, f).permute(2, 0, 1)
-    wa = wa.reshape(fp // 64, 64, 2, 4, hp).transpose(1, 2)
-    return (ws.to(torch.bfloat16).contiguous(), wa.to(torch.bfloat16).contiguous())
+
+    def analysis_layout(re_map: Tensor, im_map: Tensor) -> Tensor:
+        wa = torch.zeros((fp, 2, 4, hp), dtype=torch.float32, device=device)  # (bin, part, k, s)
+        for part, m in enumerate((re_map, im_map)):
+            wa[:f, part, :, :hop] = m.reshape(4, hop, f).permute(2, 0, 1)
+        wa = wa.reshape(fp // 64, 64, 2, 4, hp).transpose(1, 2)
+        return wa.to(torch.bfloat16).contiguous()
+
+    return (ws.to(torch.bfloat16).contiguous(), analysis_layout(fwd_re, fwd_im),
+            analysis_layout(*_fwd_lo(params, f, device)))
 
 
 def _carry(x: Tensor, b: int, t: int, fp: int, dtype: torch.dtype) -> Tensor:
@@ -318,7 +361,8 @@ def _run_fp32(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Au
     return _fp32_synth(re, im, params)[:, pad_blocks : pad_blocks + t].reshape(b, t * hop)
 
 
-def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams) -> Tensor:
+def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
+            mode: str) -> Tensor:
     b, t, f = mag.shape
     hop = params.hop_length
     fp, hp = _pad64(f), _pad64(hop)
@@ -327,15 +371,16 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
         raise ValueError("griffin_lim_kernel: too many rows for one launch")
     lib = _lib_tc()
     dev = mag.device
-    ws, wa = _tc_maps(params, f, dev)
+    split_anal, split_synth = _SPLIT[mode]
+    ws, wa, wa_lo = _tc_maps(params, f, dev)
     norm = _norm(params, t, hp, dev)
     re0, im0 = _init_carries(mag, init_phase)
     re, im = _carry(re0, b, t, fp, torch.bfloat16), _carry(im0, b, t, fp, torch.bfloat16)
     magp = _carry(mag, b, t, fp, torch.float32)
     pre, pim = torch.zeros_like(magp), torch.zeros_like(magp)
-    split_final = _split_final(t, init_phase)
+    loop_final = _loop_final(t, init_phase)
     re32 = im32 = None
-    if not split_final and n_iters > 0:
+    if not loop_final and n_iters > 0:
         re32, im32 = torch.zeros_like(magp), torch.zeros_like(magp)
     y = torch.empty((m_rows, hp), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -343,7 +388,7 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
     def synth(out: Tensor) -> None:
         code = lib.gl_tc_synth(
             re.data_ptr(), im.data_ptr(), ws.data_ptr(), norm.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), b, t, fp, hp, stream,
+            int(out.dtype == torch.float32), int(split_synth), b, t, fp, hp, stream,
         )
         _build.check(lib, code, "gl_tc_synth")
         griffin_lim_kernel.tc_launches += 1
@@ -352,16 +397,16 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
         synth(y)
         last = i == n_iters - 1
         code = lib.gl_tc_analyze(
-            y.data_ptr(), wa.data_ptr(), magp.data_ptr(), pre.data_ptr(), pim.data_ptr(),
-            re.data_ptr(), im.data_ptr(),
+            y.data_ptr(), wa.data_ptr(), wa_lo.data_ptr(), magp.data_ptr(), pre.data_ptr(),
+            pim.data_ptr(), re.data_ptr(), im.data_ptr(),
             re32.data_ptr() if last and re32 is not None else None,
             im32.data_ptr() if last and im32 is not None else None,
-            b, t, fp, hp, 0.0 if i == 0 else momentum, stream,
+            int(split_anal), b, t, fp, hp, 0.0 if i == 0 else momentum, stream,
         )
         _build.check(lib, code, "gl_tc_analyze")
         griffin_lim_kernel.tc_launches += 1
     pad_blocks = (params.n_fft // 2) // hop
-    if split_final:
+    if loop_final:
         out = torch.empty((m_rows, hp), dtype=torch.float32, device=dev)
         synth(out)
         blocks = out.view(b, t + 3, hp)[:, :, :hop]
@@ -379,12 +424,14 @@ def griffin_lim_kernel(
     init_phase: tuple[Tensor, Tensor] | None = None,
     params: AudioParams = DEFAULT_PARAMS,
     precision: str = "highest",
+    loop_dtype: str | None = None,
 ) -> Tensor:
-    """Fast G-L, (B, T, F) float32 magnitudes → (B, T·hop) waveform.
+    """Fast G-L, (B, T, F) float32 magnitudes → (B, T·hop) waveform, in the
+    loop mode :func:`loop_mode` picks from ``precision`` and ``loop_dtype``.
 
-    On a CUDA tensor: ``"highest"`` runs the fp32 kernels of
+    On a CUDA tensor: ``"float32"`` runs the fp32 kernels of
     ``csrc/griffin_lim.cu``, 2·n_iters + 1 launches counted in
-    ``griffin_lim_kernel.launches``; ``"default"`` runs the tensor-core
+    ``griffin_lim_kernel.launches``; each bf16 mode runs the tensor-core
     kernels of ``csrc/griffin_lim_tc.cu``, counted in
     ``griffin_lim_kernel.tc_launches``: 2·n_iters + 1 for T ≤ 256 without
     ``init_phase``, else 2·n_iters and one fp32 ``gl_synth_ola`` (counted in
@@ -393,23 +440,42 @@ def griffin_lim_kernel(
     backward (nor has the Pallas kernel), so under grad a ``mag`` or
     ``init_phase`` that requires grad raises rather than lose its
     gradient. On a CPU tensor: the plain version, :func:`griffin_lim_plain`.
+    Traced (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
+    registered operator ``advoc::griffin_lim``.
     """
     _check_shapes(mag, params)
-    _check_precision(precision)
+    mode = loop_mode(precision, loop_dtype)
+    if _build.traced():
+        from advoc_tpu_torch.ops.kernels import registered
+
+        cos0 = sin0 = None
+        if init_phase is not None:
+            cos0, sin0 = (torch.broadcast_to(p.to(mag), mag.shape).contiguous()
+                          for p in init_phase)
+        return registered.griffin_lim_op(mag.contiguous(), cos0, sin0, n_iters, momentum, mode,
+                                         registered.params_list(params))
     if not mag.is_cuda:
-        return griffin_lim_plain(mag, n_iters, momentum, init_phase, params, precision)
+        return griffin_lim_plain(mag, n_iters, momentum, init_phase, params, loop_dtype=mode)
     _build.refuse_grad([mag, *(init_phase or ())], "griffin_lim_kernel",
                 'spectral.griffin_lim(fft_impl="matmul")')
+    return _launch(mag, n_iters, momentum, init_phase, params, mode)
+
+
+def _launch(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
+            mode: str) -> Tensor:
+    """The kernels of ``mode`` on a CUDA tensor (``advoc::griffin_lim``'s
+    CUDA implementation, and the eager wrapper's)."""
     if mag.dtype != torch.float32 or not mag.is_contiguous():
         raise ValueError("griffin_lim_kernel needs a contiguous float32 tensor")
     b, t, f = mag.shape
-    if precision != "default" and b * (t + 3) * max(f, params.hop_length) >= 2**31:
+    if mode == "float32" and b * (t + 3) * max(f, params.hop_length) >= 2**31:
         raise ValueError("griffin_lim_kernel indexes with 32-bit offsets")
     # The launchers set their shared-memory attribute and launch on the
     # current device: make it the tensor's.
     with torch.cuda.device(mag.device):
-        run = _run_tc if precision == "default" else _run_fp32
-        return run(mag, n_iters, momentum, init_phase, params)
+        if mode == "float32":
+            return _run_fp32(mag, n_iters, momentum, init_phase, params)
+        return _run_tc(mag, n_iters, momentum, init_phase, params, mode)
 
 
 griffin_lim_kernel.launches = 0

@@ -132,12 +132,26 @@ def packed_up_kernel(
     call on x's device and its current stream (the conv launch and, with ``with_stats``,
     the partials' reduction), counted in ``packed_up_kernel.launches``; it
     raises on a tensor the kernel does not take or a failed launch. On a
-    CPU tensor: the plain version in bf16, :func:`packed_up_plain`.
+    CPU tensor: the plain version in bf16, :func:`packed_up_plain`. Traced
+    (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
+    registered operator ``advoc::packed_up``.
     """
     _check(x, wt, bias, f, tm)
+    if _build.traced():
+        from advoc_tpu_torch.ops.kernels import registered
+
+        y, s1, s2 = registered.packed_up_op(x, wt.to(x.device), bias.to(x.device), f, tm,
+                                            with_stats)
+        return (y, s1, s2) if with_stats else y
     if not x.is_cuda:
         return packed_up_plain(x.to(torch.bfloat16), wt, bias, f=f, tm=tm,
                                with_stats=with_stats)
+    return _launch(x, wt, bias, f, tm, with_stats)
+
+
+def _launch(x: Tensor, wt: Tensor, bias: Tensor, f: int, tm: int, with_stats: bool):
+    """The kernel on a CUDA tensor (``advoc::packed_up``'s CUDA
+    implementation, and the eager wrapper's)."""
     b, h, w, cin = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("packed_up_kernel needs a contiguous bfloat16 x")
@@ -155,8 +169,10 @@ def packed_up_kernel(
     stats = [None] * 4  # partials p1, p2 (B, n_part, 2f) and sums s1, s2 (B, 2f)
     if with_stats:
         n_part = (h // tm) * -(-w // 128) * 2
+        # Each sum in storage of its own: the registered operator's two
+        # outputs may not alias each other.
         stats = [*torch.empty((2, b, n_part, 2 * f), dtype=torch.float32, device=dev),
-                 *torch.empty((2, b, 2 * f), dtype=torch.float32, device=dev)]
+                 *(torch.empty((b, 2 * f), dtype=torch.float32, device=dev) for _ in range(2))]
     with torch.cuda.device(dev):  # the launcher launches on the current device
         code = lib.packed_up(
             x.data_ptr(), wq.data_ptr(), bias_p.data_ptr(), y.data_ptr(),

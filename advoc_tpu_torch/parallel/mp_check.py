@@ -9,11 +9,13 @@ on the whole batch, and compares the metrics and the updated parameters'
 norms. Every rank must also agree with every other.
 
     python -m advoc_tpu_torch.parallel.mp_check [--backend gloo|nccl]
-        [--device cpu|cuda] [--num_processes N] [--config tiny|full]
+        [--device cuda|cpu] [--num_processes N] [--config tiny|full]
         [--timed_steps K]
 
 prints one ``MP_CHECK_RESULT {...}`` JSON line and exits 1 on a mismatch;
-:func:`run_check` is the same as a library call. On ``cuda`` rank i runs
+:func:`run_check` is the same as a library call. It runs on the card
+(``cuda``) unless asked for the CPU, and raises where no card is
+visible. On ``cuda`` rank i runs
 on card i mod the visible cards, so gloo can put two ranks on one card
 (NCCL cannot). ``--config full`` takes ``AdvocConfig()``'s widths (45.6 M
 parameters with the discriminator); ``--timed_steps K`` also times K more
@@ -134,7 +136,7 @@ def _devices(num_processes: int, device: str) -> list[str]:
     return [f"cuda:{i % n}" for i in range(num_processes)]
 
 
-def run_check(num_processes: int = 2, device: str = "cpu", backend: str | None = None,
+def run_check(num_processes: int = 2, device: str = "cuda", backend: str | None = None,
               config: str = "tiny", timed_steps: int = 0, rtol: float = 2e-4,
               atol: float = 1e-5, timeout_s: float = 600.0) -> dict:
     """Spawn the data-parallel run, then run the reference in this process
@@ -186,16 +188,21 @@ def run_check(num_processes: int = 2, device: str = "cpu", backend: str | None =
     return report
 
 
-def main(argv=None) -> dict:
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--backend", choices=["gloo", "nccl"], default=None,
                    help="default: nccl on cuda, gloo on the cpu")
-    p.add_argument("--device", choices=["cpu", "cuda"], default="cpu")
+    p.add_argument("--device", choices=["cpu", "cuda"], default="cuda",
+                   help="cuda (the default) raises where no card is visible")
     p.add_argument("--num_processes", type=int, default=2)
     p.add_argument("--config", choices=sorted(CONFIGS), default="tiny")
     p.add_argument("--timed_steps", type=int, default=0)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> dict:
+    args = parser().parse_args(argv)
     report = run_check(args.num_processes, args.device, args.backend, args.config,
                        args.timed_steps)
     print("MP_CHECK_RESULT " + json.dumps(report), flush=True)

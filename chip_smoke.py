@@ -70,6 +70,18 @@ after:
   sharing the card and with one NCCL rank;
   where the machine has two cards or more, two NCCL ranks and the
   two-card ``Vocoder(mesh=)`` as well.
+* the rest of the package (:func:`rest_of_package`, phase (l)): the
+  tensor-core G-L kernel in the loop modes split, split_anal and bfloat16,
+  each held to its plain version at (128, 256), (8, 64) and (1, 1024)
+  frames, with its mel L1 gap to the fp32 plain version (gated at 2e-3 for
+  split) and its time; the full-width Vocoder exported at (8, 256) by
+  ``infer.export`` (the default, the packed tail and ``phase_impl="xla"``)
+  and served by a child process that imports no model code, against the
+  live call; ``vocoder_eval`` and ``stress_panel`` (through the featurizer
+  kernel) on the card against the CPU port; the generator's other decoder
+  modes and an even head kernel at full width against the CPU port, timed
+  at B=128 × 256, and ``truncate_after`` at every stage; the roofline and
+  profiling tools.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -1281,6 +1293,312 @@ def parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi: str) -> dict
     return out
 
 
+# The child of phase (l-b): serves the exported artifacts with no model code.
+_EXPORT_CHILD = r'''
+import json, pathlib, sys
+import numpy as np, torch
+from advoc_tpu_torch.infer.export import ExportedVocoder
+from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel
+from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel
+root = pathlib.Path(sys.argv[1])
+mels = torch.tensor(np.load(root / "mels.npy"), device="cuda")
+res = {}
+for name in sys.argv[2:]:
+    ev = ExportedVocoder(root / name)
+    ev(mels)
+    torch.cuda.synchronize()
+    griffin_lim_kernel.launches = griffin_lim_kernel.tc_launches = packed_up_kernel.launches = 0
+    out = ev(mels)
+    torch.cuda.synchronize()
+    launches = {"griffin_lim": griffin_lim_kernel.launches,
+                "griffin_lim_tc": griffin_lim_kernel.tc_launches,
+                "packed_up": packed_up_kernel.launches}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        ev(mels)
+    end.record()
+    torch.cuda.synchronize()
+    np.save(root / f"{name}.npy", out.cpu().numpy())
+    res[name] = {"launches": launches, "ms": start.elapsed_time(end) / 3}
+res["model_modules"] = sorted(m for m in sys.modules if m.startswith("advoc_tpu_torch.models"))
+print("EXPORT_CHILD " + json.dumps(res))
+'''
+
+
+def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl_mag,
+                    gl_mag_long, smi: str) -> dict:
+    """Phase (l): G-L's other loop modes, AOT export, the evaluation panel,
+    the generator's other decoder modes and the tools (see the module's
+    docstring). Returns the numbers it printed."""
+    from advoc_tpu_torch.infer import Vocoder
+    from advoc_tpu_torch.infer.export import export_vocoder
+    from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
+    from advoc_tpu_torch.ops import spectral as sp
+    from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
+    from advoc_tpu_torch.train import eval_metrics as em
+    from advoc_tpu_torch.utils import profiling, roofline
+
+    t_phase = time.perf_counter()
+    out: dict = {"modes": {}}
+
+    # -- (l-a) B1/B2 in the loop modes split, split_anal, bfloat16 ---------------
+    # Each mode against its own plain version at the split mode's bounds
+    # (the same operands rounded to bf16 and other sum orders: 1e-5 × peak
+    # for the synthesis alone, 2e-2 and 5e-2 × peak after one and two
+    # iterations, mean 3e-4 × peak); the 30-iteration mel L1 gap to the fp32
+    # plain version gated at 2e-3 for split (JAX's split_synth-class mode),
+    # printed for split_anal and bfloat16 (JAX's docstring: ≈ 9e-3 worse).
+    # The main path of a mode: one call at B=128 × 256, 2·30 + 1 launches.
+    flops = gl_flops(128, 256, 512, 30)
+    gl_bound, _ = bound(flops, gl_bytes(128, 256, 512))
+    long_bound, _ = bound(gl_flops(1, 1024, 512, 30), gl_bytes(1, 1024, 512))
+    shapes = {(128, 256): gl_mag, (8, 64): None, (1, 1024): gl_mag_long}
+    fp32_l1 = {}
+    for (b, t), mag in shapes.items():
+        mel = mels(b, t, seed=t + b)
+        if mag is None:
+            mag = sp.r9y9_melspec_to_magspec(mel)[..., :512].contiguous()
+        shapes[(b, t)] = (mel, mag)
+        fp32_l1[(b, t)] = mel_l1(griffin_lim_plain(mag, 30, 0.99), mel)
+    for mode in ("split", "split_anal", "bfloat16"):
+        row: dict = {"max_abs_err": 0.0, "gap": {}}
+        for (b, t), (mel, mag) in shapes.items():
+            errs = []
+            for n_iters, momentum, rtol in ((0, 0.0, 1e-5), (1, 0.0, 2e-2), (2, 0.99, 5e-2)):
+                yk = griffin_lim_kernel(mag, n_iters, momentum, loop_dtype=mode)
+                torch.cuda.synchronize()
+                yp = griffin_lim_plain(mag, n_iters, momentum, loop_dtype=mode)
+                peak = float(yp.abs().max())
+                err, mean = float((yk - yp).abs().max()), float((yk - yp).abs().mean())
+                require(err <= rtol * peak and mean <= 3e-4 * peak,
+                        f"G-L {mode} {n_iters} iters B={b} T={t}: max {err} > {rtol} × {peak} "
+                        f"or mean {mean}")
+                errs.append(err / peak)
+                if (b, t) == (128, 256):
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+            l1 = mel_l1(griffin_lim_kernel(mag, 30, 0.99, loop_dtype=mode), mel)
+            gap = l1 - fp32_l1[(b, t)]
+            if mode == "split":
+                require(abs(gap) < 2e-3, f"G-L split B={b} T={t}: mel L1 {l1} vs fp32 plain "
+                                         f"{fp32_l1[(b, t)]}")
+            row["gap"][f"{b}x{t}"] = gap
+            print(f"(l-a) griffin_lim {mode} B={b} T={t}: max|Δ|/peak vs plain 0-iter "
+                  f"{errs[0]:.2e}, 1-iter {errs[1]:.2e}, 2-iter {errs[2]:.2e}; 30-iter mel L1 "
+                  f"{l1:.5f}, fp32 plain {fp32_l1[(b, t)]:.5f}, gap {gap:+.2e}")
+        mag = shapes[(128, 256)][1]
+        zero_counts()
+        griffin_lim_kernel(mag, 30, 0.99, loop_dtype=mode)
+        torch.cuda.synchronize()
+        row["launches"] = counts()
+        require(row["launches"] == {"griffin_lim": 0, "griffin_lim_tc": 61, "fused_melspec": 0,
+                                    "packed_up": 0}, f"G-L {mode} launches {row['launches']}")
+        long_mag = shapes[(1, 1024)][1]
+        row.update(
+            ms=cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99, loop_dtype=mode)),
+            plain_ms=cuda_ms(lambda: griffin_lim_plain(mag, 30, 0.99, loop_dtype=mode)),
+            ms_split_synth=cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99, precision="default")),
+            ms_b1_t1024=cuda_ms(lambda: griffin_lim_kernel(long_mag, 30, 0.99, loop_dtype=mode)),
+            plain_ms_b1_t1024=cuda_ms(lambda: griffin_lim_plain(long_mag, 30, 0.99,
+                                                                loop_dtype=mode)),
+            bound_ms=gl_bound, bound_ms_b1_t1024=long_bound)
+        row["ms_repeat"] = cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99, loop_dtype=mode))
+        out["modes"][mode] = row
+        print(f"(l-a) griffin_lim {mode} B=128 T=256 F=512 30 iters: launches "
+              f"{row['launches']}, kernel {row['ms']:.2f} ms (repeat {row['ms_repeat']:.2f}; "
+              f"split_synth {row['ms_split_synth']:.2f} ms in the same turn), plain "
+              f"{row['plain_ms']:.2f} ms, bound {gl_bound:.2f} ms; B=1 T=1024 kernel "
+              f"{row['ms_b1_t1024']:.3f} ms, plain {row['plain_ms_b1_t1024']:.2f} ms, bound "
+              f"{long_bound:.4f} ms ({smi})")
+    out["a_s"] = time.perf_counter() - t_phase
+
+    # -- (l-b) AOT export of the full-width Vocoder at (8, 256) ------------------
+    # Three artifacts of the AdvocConfig() generator (random weights from
+    # seed 0): the default Vocoder (the tensor-core G-L as advoc::griffin_lim),
+    # the packed tail (advoc::packed_up too) and phase_impl="xla" (plain aten).
+    # A child process that imports no model code serves each on the same
+    # mels: the same operators on the same weights, so bit-equal to the live
+    # call is expected; held to mel L1 within 1e-4 of it and printed.
+    batch8 = mels(8, 256, seed=11)
+    vocs = {"default": voc, "packed_tail": voc_pk,
+            "xla": Vocoder(gen, device="cuda", phase_impl="xla")}
+    try:
+        export_vocoder(Vocoder(device="cuda", gl_iters=2), [(1, 256)],
+                       pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_refused_")))
+        require(False, "a kernel artifact without allow_custom_calls was not refused")
+    except ValueError as exc:
+        require("allow_custom_calls" in str(exc), f"refusal message: {exc}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
+        root = pathlib.Path(tmp)
+        np.save(root / "mels.npy", batch8.cpu().numpy())
+        export_s = {}
+        for name, v in vocs.items():
+            t0 = time.perf_counter()
+            export_vocoder(v, [(8, 256)], root / name, allow_custom_calls=name != "xla")
+            export_s[name] = time.perf_counter() - t0
+        proc = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, str(root), *vocs],
+                              capture_output=True, text=True, timeout=300, check=False)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("EXPORT_CHILD ")]
+        require(proc.returncode == 0 and len(line) == 1,
+                f"export child failed ({proc.returncode}): {proc.stderr[-3000:]}")
+        child = json.loads(line[0][len("EXPORT_CHILD "):])
+        require(child["model_modules"] == [],
+                f"the export child imported model code: {child['model_modules']}")
+        want_launches = {"default": (61, 0), "packed_tail": (61, 1), "xla": (0, 0)}
+        for name, v in vocs.items():
+            live = v(batch8)
+            got = torch.tensor(np.load(root / f"{name}.npy"), device=dev)
+            err = float((got - live).abs().max())
+            l1_live, l1_got = mel_l1(live, batch8), mel_l1(got, batch8)
+            launches = child[name]["launches"]
+            tc, pk = want_launches[name]
+            require(tuple(got.shape) == (8, 256 * HOP) and launches["griffin_lim_tc"] == tc
+                    and launches["packed_up"] == pk and launches["griffin_lim"] == 0,
+                    f"export {name}: shape {tuple(got.shape)}, launches {launches}")
+            require(abs(l1_got - l1_live) <= 1e-4,
+                    f"export {name}: mel L1 {l1_got} vs live {l1_live}, max|Δ| {err}")
+            live_ms = cuda_ms(lambda: v(batch8))  # noqa: B023
+            out[f"export_{name}"] = {"max_abs_err": err, "bit_equal": err == 0.0,
+                                     "launches": launches, "ms": child[name]["ms"],
+                                     "live_ms": live_ms, "export_s": export_s[name]}
+            print(f"(l-b) exported Vocoder {name} (8, 256), full width: served by a child "
+                  f"with no model code, launches {launches}; max|Δ| vs the live call {err:.3e}"
+                  f" ({'bit-equal' if err == 0.0 else 'not bit-equal'}), mel L1 {l1_got:.5f} "
+                  f"(live {l1_live:.5f}); {child[name]['ms']:.2f} ms a call against "
+                  f"{live_ms:.2f} ms live; export took {export_s[name]:.1f} s")
+    out["b_s"] = time.perf_counter() - t_phase
+
+    # -- (l-c) the evaluation panel at full width ---------------------------------
+    # vocoder_eval of the same pair on the card and on the CPU: the same
+    # float32 reductions through two FFT libraries, 1e-3 relative. The
+    # stress panel on the card (featurized by the B3 kernel, the full-width
+    # Vocoder through B1) against the CPU port (the plain featurizer, the
+    # CPU U-Net and B1's plain version at the card's split precision):
+    # 30 chaotic G-L iterations from two U-Nets' roundings, so each metric
+    # within 10% + a floor (the L1s 1e-3, LSD 0.5 dB, SNR 0.5 dB, STOI 0.1:
+    # on the tone class STOI correlates bands that hold rounding-level
+    # energy, and two CPU programs put it 2.3e-2 apart, tests/test_torch_eval.py).
+    ref = torch.tensor(synthetic_speech_rows(8, 256 * HOP, 12), device=dev)
+    gen_wav = voc(sp.waveform_to_r9y9_melspec(ref, impl="kernel"))[:, : 256 * HOP]
+    ev_card = {k: float(v) for k, v in em.vocoder_eval(ref, gen_wav).items()}
+    ev_cpu = {k: float(v) for k, v in em.vocoder_eval(ref.cpu(), gen_wav.cpu()).items()}
+    for k, v in ev_cpu.items():
+        require(abs(ev_card[k] - v) <= 1e-3 * abs(v) + 1e-6,
+                f"vocoder_eval {k}: card {ev_card[k]} vs CPU {v}")
+    stoi8 = em.stoi(ref[0], gen_wav[0])
+    print(f"(l-c) vocoder_eval B=8×256 full width on the card: {ev_card} (CPU on the same "
+          f"pair {ev_cpu}); STOI of row 0 {stoi8:.4f}")
+    zero_counts()
+    t0 = time.perf_counter()
+    panel = em.stress_panel(voc, impl="kernel")
+    torch.cuda.synchronize()
+    panel_s, panel_launches = time.perf_counter() - t0, counts()
+    require(panel_launches["fused_melspec"] == 6 and panel_launches["griffin_lim_tc"] == 6 * 61,
+            f"stress panel launches {panel_launches}")
+    gen_cpu = AdvocGenerator(gen.cfg)
+    gen_cpu.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()})
+    gen_cpu.eval()
+    voc_cpu = Vocoder(gen_cpu, device="cpu", phase_impl="kernel", chunk_frames=voc.chunk,
+                      overlap_frames=voc.overlap, gl_iters=voc.gl_iters)
+    panel_cpu = em.stress_panel(voc_cpu, impl="kernel")
+    floors = {"spec_l1": 1e-3, "mel_l1": 1e-3, "lsd_db": 0.5, "snr_db": 0.5, "stoi": 0.1}
+    for kind, metrics in panel.items():
+        for k, v in metrics.items():
+            w = panel_cpu[kind][k]
+            if not np.isfinite(w):
+                require(kind == "silence" and not np.isfinite(v), f"stress {kind} {k}: {v} vs {w}")
+                continue
+            require(abs(v - w) <= 0.1 * abs(w) + floors[k],
+                    f"stress panel {kind} {k}: card {v} vs CPU {w}")
+        print(f"(l-c) stress panel {kind}: card "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()) + "; CPU "
+              + ", ".join(f"{k} {v:.4f}" for k, v in panel_cpu[kind].items()))
+    out["eval"] = {"vocoder_eval": ev_card, "stress_s": panel_s, "launches": panel_launches,
+                   "stress": panel}
+    print(f"(l-c) stress panel on the card: {panel_s:.2f} s for 6 classes, launches "
+          f"{panel_launches}")
+    out["c_s"] = time.perf_counter() - t_phase
+
+    # -- (l-d) the generator's other modes at full width ---------------------------
+    # Each decoder mode (and an even head kernel) with AdvocConfig()'s widths,
+    # random weights from a seed: the card against the CPU port at B=2 × 256
+    # (bf16: tests/test_torch_model.py's bounds, 5e-2 at most, 5e-3 mean),
+    # timed at B=128 × 256 beside the default decoder; truncate_after on the
+    # card against the CPU at three stages (the stage's mean, 1e-2 relative
+    # + 1e-3: bf16 activations) and the cumulative time to every stage.
+    x2 = torch.tensor(np.random.default_rng(13).uniform(0, 1, (2, 256, 513)), dtype=torch.float32)
+    x128 = torch.rand((128, 256, 513), generator=torch.Generator(device=dev).manual_seed(14),
+                      device=dev)
+    with torch.inference_mode():
+        default_ms = cuda_ms(lambda: gen(x128))
+    out["decoders"] = {"convtranspose_ms": default_ms}
+    for name, kw in (("pixelshuffle", dict(upsample="pixelshuffle")),
+                     ("subpixel", dict(upsample="subpixel")),
+                     ("resize", dict(upsample="resize")),
+                     ("head_kernel_4", dict(head_kernel=4))):
+        g = AdvocGenerator(AdvocConfig(**kw))
+        g.reset_parameters(torch.Generator().manual_seed(15))
+        g_card = copy.deepcopy(g).to(dev).eval()
+        with torch.inference_mode():
+            want, got = g.eval()(x2), g_card(x2.to(dev)).cpu()
+            ms = cuda_ms(lambda: g_card(x128))  # noqa: B023
+        d = (got - want).abs()
+        require(float(d.max()) <= 5e-2 and float(d.mean()) < 5e-3,
+                f"decoder {name}: card vs CPU max {float(d.max())}, mean {float(d.mean())}")
+        out["decoders"][name] = {"max_abs_err": float(d.max()), "ms": ms}
+        print(f"(l-d) generator {name} full width: card vs CPU B=2×256 max|Δ| "
+              f"{float(d.max()):.3e}, mean {float(d.mean()):.2e}; B=128×256 {ms:.2f} ms "
+              f"(convtranspose {default_ms:.2f} ms)")
+        del g, g_card
+    stages = ([f"down{i}" for i in range(6)] + ["bottleneck"] + [f"up{i}" for i in range(6)])
+    stage_ms = {}
+    with torch.inference_mode():
+        for stage in stages:
+            if stage in ("down0", "bottleneck", "up5"):
+                v_card = float(gen(x2.to(dev), truncate_after=stage))
+                v_cpu = float(gen_cpu(x2, truncate_after=stage))
+                require(abs(v_card - v_cpu) <= 1e-2 * abs(v_cpu) + 1e-3,
+                        f"truncate_after {stage}: card {v_card} vs CPU {v_cpu}")
+            stage_ms[stage] = cuda_ms(lambda: gen(x128, truncate_after=stage))  # noqa: B023
+    out["decoders"]["stage_ms"] = stage_ms
+    print("(l-d) U-Net B=128×256 cumulative ms to each stage (truncate_after): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()) + f"; whole {default_ms:.2f}")
+    out["d_s"] = time.perf_counter() - t_phase
+
+    # -- (l-e) the tools on the card -------------------------------------------------
+    peaks = roofline.device_peaks()
+    est = x128[:8]
+    cost = roofline.cost_of(gen, est)
+    with torch.inference_mode():
+        secs = roofline.slope_time(gen, est, k_lo=2, k_hi=6, trials=2)
+    row = roofline.roofline_row("U-Net B=8×256", cost["flops"], cost["bytes"], secs, peaks)
+    print("(l-e) roofline (utils/roofline.py; FlopCounterMode counts the convolutions):\n"
+          + roofline.format_table([row], peaks))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        with torch.inference_mode(), profiling.trace(tmp) as prof:
+            gen(est)
+            torch.cuda.synchronize()
+        n_files = len(list(pathlib.Path(tmp).glob("*.pt.trace.json")))
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    with torch.inference_mode():
+        best, _ = profiling.timed_call(gen, est)
+    require(n_files == 1 and not peaks.assumed, f"tools: {n_files} trace files, {peaks}")
+    print(f"(l-e) profiling.trace wrote {n_files} trace, device time {device_ms:.2f} ms; "
+          f"timed_call best {best * 1e3:.2f} ms; device_peaks {peaks}")
+    out["roofline"] = row
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase (l) took {out['phase_s']:.1f} s ((l-a) done at {out['a_s']:.1f} s, (l-b) at "
+          f"{out['b_s']:.1f} s, (l-c) at {out['c_s']:.1f} s, (l-d) at {out['d_s']:.1f} s)")
+    return out
+
+
+def synthetic_speech_rows(b: int, length: int, seed: int) -> np.ndarray:
+    """(b, length) rows cut from one synthetic signal."""
+    from advoc_tpu_torch.data.synthetic import synthetic_speech
+
+    return synthetic_speech(seed, b * length).reshape(b, length)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1777,6 +2095,8 @@ def main() -> int:
         trained = training(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
         fam = families(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
     par = parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi)
+    rest = rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl_mag,
+                           gl_mag_long, smi)
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
@@ -1829,6 +2149,8 @@ def main() -> int:
         "launches_melspecgan_vocode": fam["pipeline"]["vocode"]["launches"]["griffin_lim_tc"],
         "launches_melspecgan_advoc": fam["pipeline"]["advoc"]["launches"]["griffin_lim_tc"],
         "launches_vocoder_mesh": par["vocoder_launches"]["griffin_lim_tc"],
+        "launches_stress_panel": rest["eval"]["launches"]["griffin_lim_tc"],
+        "launches_exported_vocoder": rest["export_default"]["launches"]["griffin_lim_tc"],
         "ms_b8_t64": fam["pipeline"]["vocode"]["b1_ms"],
         "bound_ms_b8_t64": fam["pipeline"]["vocode"]["b1_bound_ms"],
         "ms_b8_t256": fam["pipeline"]["advoc"]["b1_ms"],
@@ -1845,7 +2167,30 @@ def main() -> int:
         "library_ms": times["bf16_matmul_ms"],
         "library": "one bf16 torch.matmul at the analysis GEMM's shape, (B·T) × n_fft × 2F",
         "library_ms_b1_t1024": times_long["bf16_matmul_ms"],
-    }, {
+    }, *({
+        "name": f"griffin_lim_tc[{mode}]",
+        "route": "cuda",
+        "source": "advoc_tpu_torch/csrc/griffin_lim_tc.cu",
+        "replaces": "advoc_tpu/ops/pallas/griffin_lim.py:362",
+        "replaces_all": [
+            "advoc_tpu/ops/pallas/griffin_lim.py:362 griffin_lim_pallas",
+            "advoc_tpu/ops/pallas/griffin_lim.py:482 griffin_lim_pallas_tiled",
+        ],
+        "loop_dtype": mode,
+        "launches": row["launches"]["griffin_lim_tc"],
+        "checks": "pass",
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "ms_split_synth_same_turn": row["ms_split_synth"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "operations",
+        "ms_b1_t1024": row["ms_b1_t1024"],
+        "plain_ms_b1_t1024": row["plain_ms_b1_t1024"],
+        "bound_ms_b1_t1024": row["bound_ms_b1_t1024"],
+        "mel_l1_gap_to_fp32": row["gap"],
+        "library_ms": None,
+    } for mode, row in rest["modes"].items()), {
         "name": "fused_melspec",
         "route": "cuda",
         "source": "advoc_tpu_torch/csrc/featurizer.cu",
@@ -1853,6 +2198,7 @@ def main() -> int:
         "design": "3xTF32 wgmma (A = the audio window from registers, B = TMA-fed split "
                   "maps), mel fold as a second 3xTF32 wgmma on |X| from the accumulator",
         "launches": slice_launches["fused_melspec"],
+        "launches_stress_panel": rest["eval"]["launches"]["fused_melspec"],
         "checks": "pass",
         "max_abs_err": feat_err,
         "ms": feat_ms,
@@ -1874,6 +2220,7 @@ def main() -> int:
         "design": "bf16 wgmma m64n128k16 on y^T (A = resident class weights, B = TMA boxes "
                   "of x, one per input row for both column taps), TMA store of y",
         "launches": slice_launches["packed_up"],
+        "launches_exported_vocoder": rest["export_packed_tail"]["launches"]["packed_up"],
         "checks": "pass",
         "max_abs_err": up_err,
         "ms": up_ms,

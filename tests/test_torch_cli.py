@@ -205,17 +205,21 @@ class TestVocodeCli:
     @pytest.mark.parametrize("extra", [["--aot", "x"], ["--aot_export", "x"],
                                        ["--aot_allow_custom_calls"], ["--train_dir", "x"]])
     def test_unported_options_raise(self, tmp_path, extra):
-        """The AOT options are not ported and raise so. --train_dir, which
-        raised the same way before, loads a training run's latest checkpoint
-        now (tests/test_torch_train_cli.py): a directory without one raises
-        FileNotFoundError."""
+        """Options that once raised as unported now run: --train_dir loads a
+        training run's latest checkpoint (tests/test_torch_train_cli.py), so a
+        directory without one raises FileNotFoundError; the AOT options
+        (tests/test_torch_export.py) raise NotImplementedError no more and
+        fail, as any run does, on what is missing: --aot on a directory
+        without a manifest, the others on the missing input."""
         if "--train_dir" in extra:
             with pytest.raises(FileNotFoundError, match="no checkpoint"):
                 vocode_cli.main(["--input", "x.npy", "--out_dir", str(tmp_path), "--device", "cpu",
                                  "--train_dir", str(tmp_path / "run")])
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            vocode_cli.main(["--input", "x.npy", "--out_dir", str(tmp_path), *extra])
+        with pytest.raises(FileNotFoundError, match="manifest.json" if "--aot" in extra
+                           else "x.npy"):
+            vocode_cli.main(["--input", str(tmp_path / "x.npy"), "--out_dir", str(tmp_path),
+                             "--device", "cpu", *extra])
 
     def test_default_device_needs_cuda(self, tmp_path, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

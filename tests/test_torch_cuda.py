@@ -110,6 +110,35 @@ def test_griffin_lim_tc_kernel_matches_plain(dev, t, n_bins, hop, with_init):
         assert float((y - want).abs().mean()) <= 3e-4 * peak
 
 
+@pytest.mark.parametrize("mode", ["split", "split_anal", "bfloat16"])
+@pytest.mark.parametrize("t,n_bins,hop,with_init", [
+    (64, 512, 256, False), (300, 513, 256, False), (64, 512, 256, True), (64, 501, 250, False),
+])
+def test_griffin_lim_tc_kernel_loop_modes(dev, mode, t, n_bins, hop, with_init):
+    """The other bf16 loop modes against their plain versions, at the split
+    mode's bounds (the same operands rounded to bf16, other sum orders):
+    split and plain synthesis, split and plain analysis, B1's and B2's tails."""
+    q = AudioParams(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+    wav = torch.tensor(synthetic_speech(hop, 2 * t * hop), device=dev).reshape(2, -1)
+    mag = sp.waveform_to_magspec(wav, q)[:, :t, :n_bins].contiguous()
+    init = None
+    if with_init:
+        phi = torch.tensor(np.random.default_rng(0).uniform(0, 2 * np.pi, mag.shape),
+                           dtype=torch.float32, device=dev)
+        init = (torch.cos(phi), torch.sin(phi))
+    loop_final = t <= 256 and init is None
+    for n_iters, momentum, rtol in ((0, 0.0, 1e-5), (1, 0.0, 2e-2), (2, 0.99, 5e-2)):
+        before = (tgl.griffin_lim_kernel.tc_launches, tgl.griffin_lim_kernel.launches)
+        y = tgl.griffin_lim_kernel(mag, n_iters, momentum, init, q, loop_dtype=mode)
+        torch.cuda.synchronize()
+        assert tgl.griffin_lim_kernel.tc_launches == before[0] + 2 * n_iters + loop_final
+        assert tgl.griffin_lim_kernel.launches == before[1] + (not loop_final)
+        want = tgl.griffin_lim_plain(mag, n_iters, momentum, init, q, loop_dtype=mode)
+        peak = float(want.abs().max())
+        torch.testing.assert_close(y, want, rtol=0, atol=rtol * peak)
+        assert float((y - want).abs().mean()) <= 3e-4 * peak
+
+
 def test_griffin_lim_tc_kernel_rejects_what_it_cannot_take(dev):
     _, mag = _mel_mag(dev, 1, 64, 512)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -464,6 +493,63 @@ def test_vocode_cli_takes_the_tensor_core_kernel(dev, tmp_path):
                      "--gl_iters", "4", "--batch", "2"])
     assert tgl.griffin_lim_kernel.tc_launches > before
     assert len(list((tmp_path / "out").glob("*.wav"))) == 2
+
+
+@pytest.mark.parametrize("packed_tail", [False, True])
+def test_exported_vocoder_takes_the_kernels_on_the_card(dev, tmp_path, packed_tail):
+    """An artifact of a Vocoder on the card records the registered kernels
+    (advoc::griffin_lim, and advoc::packed_up under the packed tail); served,
+    it launches them (2·4 + 1 tensor-core G-L launches, one B4 call) and
+    equals the live call bit for bit (the same operators on the same
+    weights)."""
+    from advoc_tpu_torch.infer.export import ExportedVocoder, export_vocoder
+    from advoc_tpu_torch.ops.kernels import registered
+
+    cfg = AdvocConfig(n_frames=64, width=16, depth=4, packed_tail=packed_tail)
+    g = AdvocGenerator(cfg)
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    voc = Vocoder(g, chunk_frames=64, overlap_frames=8, gl_iters=4, device="cuda")
+    mel, _ = _mel_mag(dev, 2, 128, 512)
+    export_vocoder(voc, [(2, 128)], tmp_path, allow_custom_calls=True)
+    program = torch.export.load(tmp_path / "voc_b2_t128.pt2")
+    want_ops = ["advoc::packed_up"] * packed_tail + ["advoc::griffin_lim"]
+    assert sorted(registered.recorded(program.graph_module)) == sorted(want_ops)
+    served = ExportedVocoder(tmp_path)
+    served(mel)
+    before = (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches)
+    got = served(mel)
+    torch.cuda.synchronize()
+    assert tgl.griffin_lim_kernel.tc_launches - before[0] == 2 * 4 + 1
+    assert tpu.packed_up_kernel.launches - before[1] == (1 if packed_tail else 0)
+    torch.testing.assert_close(got, voc(mel), rtol=0, atol=0)
+
+
+def test_registered_operators_on_the_card(dev):
+    """Each advoc:: operator's CUDA implementation is its kernel: the fake
+    implementation's shapes and dtypes, counted launches, the plain version
+    within the eager checks' bounds."""
+    from advoc_tpu_torch.ops.kernels import registered
+    from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS
+
+    p = registered.params_list(DEFAULT_PARAMS)
+    _, mag = _mel_mag(dev, 2, 64, 512)
+    for mode in ("float32", "split_synth", "split", "split_anal", "bfloat16"):
+        y = registered.griffin_lim_op(mag, None, None, 0, 0.0, mode, p)
+        want = tgl.griffin_lim_plain(mag, 0, 0.0, loop_dtype=mode)
+        torch.testing.assert_close(y, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    wav = torch.tensor(synthetic_speech(1, 2 * 64 * 256), device=dev).reshape(2, -1)
+    before = tfeat.fused_melspec_kernel.launches
+    mel = registered.fused_melspec_op(wav, p)
+    assert tfeat.fused_melspec_kernel.launches == before + 1 and mel.shape == (2, 64, 80)
+    torch.testing.assert_close(mel, tfeat.fused_melspec_plain(wav), rtol=0, atol=2e-4)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 16, 64, 64), generator=g, device=dev).to(torch.bfloat16)
+    wt = torch.randn((4, 4, 64, 32), generator=g, device=dev) / 32.0
+    bias = torch.zeros(32, device=dev)
+    y, s1, s2 = registered.packed_up_op(x, wt, bias, 32, 8, True)
+    assert s1.data_ptr() != s2.data_ptr() and y.shape == (1, 32, 64, 64)
+    want = tpu.packed_up_plain(x, wt, bias, f=32, tm=8).float()
+    torch.testing.assert_close(y.float(), want, rtol=0, atol=1e-2 * float(want.abs().max()))
 
 
 # -- LWS and the matmul G-L's default precision on the card ------------------------

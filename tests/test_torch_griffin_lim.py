@@ -195,16 +195,86 @@ class TestSplitAgainstPallas:
             np.testing.assert_array_equal(lo, m[512:1024])
 
 
-def _emulate_tensor_core_layout(mag, n_iters, momentum, params):
+class TestLoopModesAgainstPallas:
+    """loop_dtype "split", "split_anal" and "bfloat16" against the Pallas
+    kernels at the same loop_dtype: the same operands rounded to bf16 and
+    the sums taken in another order, so the split mode's bounds hold
+    (1e-3 and 3e-3 × peak after one and four iterations; the tiled kernel
+    1.5e-2 × peak at most, 3e-4 × peak on average)."""
+
+    @pytest.mark.parametrize("mode", ["split", "split_anal", "bfloat16"])
+    @pytest.mark.parametrize("n_iters,rtol", [(1, 1e-3), (4, 3e-3)])
+    def test_single_tile_kernel(self, short, mode, n_iters, rtol):
+        _, mag = short
+        m = np.ascontiguousarray(mag[..., :512])
+        want = np.asarray(griffin_lim_pallas(
+            jnp.asarray(m), n_iters=n_iters, momentum=0.99, params=P, interpret=True,
+            loop_dtype=mode))
+        got = tgl.griffin_lim_plain(torch.tensor(m), n_iters, 0.99, loop_dtype=mode).numpy()
+        assert got.shape == want.shape == (2, 64 * P.hop_length)
+        _assert_close(got, want, rtol)
+
+    @pytest.mark.parametrize("mode", ["split", "split_anal", "bfloat16"])
+    def test_tiled_kernel(self, long, mode):
+        """B2 (two rounds of one iteration on 256-frame tiles with halos) and
+        its f32 final synthesis, which every bf16 mode shares. Two
+        iterations: at four, momentum 0.99 carries the isolated bf16
+        rounding spikes on to 2.5e-2 × peak at most in the split mode
+        (1.4e-2 split_anal, 1.3e-2 bfloat16, 8.2e-3 split_synth) at a mean
+        of 1.7e-4 × peak, the chaotic growth the split_synth test bounds."""
+        _, mag = long
+        want = np.asarray(griffin_lim_pallas_tiled(
+            jnp.asarray(mag), n_iters=2, momentum=0.99, params=P, interpret=True,
+            loop_dtype=mode, tile=256, halo=16, iters_per_round=1))
+        got = tgl.griffin_lim_plain(torch.tensor(mag), 2, 0.99, loop_dtype=mode).numpy()
+        assert got.shape == want.shape == (1, 512 * P.hop_length)
+        _assert_close(got, want, 1.5e-2)
+        assert np.abs(got - want).mean() <= 3e-4 * np.abs(want).max()
+
+    def test_forward_maps_split_as_pallas(self):
+        """The forward maps' (hi, lo) pairs equal _gl_maps(loop_dtype="split")
+        without its lane padding."""
+        from advoc_tpu.ops.pallas.griffin_lim import _gl_maps
+
+        fwd_re, fwd_im, _, _ = (np.asarray(m, np.float32) for m in _gl_maps(P, "split", 512))
+        hi = tgl._split_maps(AudioParams(), 512, torch.device("cpu"))[:2]
+        lo = tgl._fwd_lo(AudioParams(), 512, torch.device("cpu"))
+        for h, l, m in zip(hi, lo, (fwd_re, fwd_im)):
+            np.testing.assert_array_equal(h.numpy(), m[: P.n_fft, :512])
+            np.testing.assert_array_equal(l.numpy(), m[P.n_fft :, :512])
+
+    def test_mode_names(self, short):
+        """loop_dtype takes JAX's five names and wins over precision; the two
+        precisions name float32 and split_synth."""
+        assert tgl.loop_mode("highest") == "float32"
+        assert tgl.loop_mode("default") == "split_synth"
+        assert tgl.loop_mode("default", "bfloat16") == "bfloat16"
+        _, mag = short
+        m = torch.tensor(mag[..., :512]).contiguous()
+        for mode, precision in (("float32", "highest"), ("split_synth", "default")):
+            torch.testing.assert_close(tgl.griffin_lim_kernel(m, 1, 0.99, loop_dtype=mode),
+                                       tgl.griffin_lim_plain(m, 1, 0.99, precision=precision),
+                                       rtol=0, atol=0)
+        with pytest.raises(ValueError, match="loop_dtype"):
+            tgl.griffin_lim_kernel(m, 2, 0.99, loop_dtype="float16")
+
+
+def _emulate_tensor_core_layout(mag, n_iters, momentum, params, mode="split_synth"):
     """The tensor-core kernel's products as dense shifted matmuls over its
     padded operands (_tc_maps, _carry, _norm): synthesis reads carry rows
     r + 3 − k, analysis y rows r + k, and the analysis columns come in
-    groups of 64 real then 64 imaginary bins."""
+    groups of 64 real then 64 imaginary bins. A split product reads the hi
+    and lo tiles of a map, a plain one the hi tile alone (ws[:, :, 0], wa)."""
+    split_anal, split_synth = tgl._SPLIT[mode]
     b, t, f = mag.shape
     hop = params.hop_length
     fp, hp = tgl._pad64(f), tgl._pad64(hop)
     m_rows = b * (t + 3)
-    ws, wa = (w.float() for w in tgl._tc_maps(params, f, mag.device))
+    ws, wa, wa_lo = (w.float() for w in tgl._tc_maps(params, f, mag.device))
+    if not split_synth:
+        ws = torch.stack([ws[:, :, 0], torch.zeros_like(ws[:, :, 0])], dim=2)
+    if split_anal:
+        wa = wa + wa_lo  # hi + lo is exact in f32, as each product is
     norm = tgl._norm(params, t, hp, mag.device)
     rows_norm = norm.repeat(b, 1)
     re, im = (tgl._carry(x, b, t, fp, torch.bfloat16).float() for x in tgl._init_carries(mag, None))
@@ -244,17 +314,23 @@ def _bf16(x):
 @pytest.mark.parametrize("hop,n_bins,t", [(256, 513, 40), (50, 101, 30), (250, 501, 20)])
 def test_tensor_core_operand_layout(hop, n_bins, t):
     """The padded carry, map and norm layouts the tensor-core kernel reads
-    compute the split plain version's function (synthesis alone to 1e-5 ×
-    peak; two iterations to 2e-3 × peak, the sums taken in another order)."""
+    compute the plain version's function (synthesis alone to 1e-5 × peak;
+    two iterations to 2e-3 × peak, the sums taken in another order), for
+    split_synth (split synthesis, plain analysis) and split_anal (plain
+    synthesis, split analysis): every operand layout of the four bf16
+    modes. The emulation adds a split analysis's hi and lo maps before one
+    product, which is exact in f32 up to the product's rounding: within the
+    same bound."""
     kw = dict(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
     q = AudioParams(**kw)
     wav = loader.synthetic_speech(hop, 2 * t * hop).reshape(2, -1)
     mag = torch.tensor(np.asarray(jsp.waveform_to_magspec(
         jnp.asarray(wav), JAudioParams(**kw)))[:, :t, :n_bins]).contiguous()
-    for n_iters, rtol in ((0, 1e-5), (2, 2e-3)):
-        got = _emulate_tensor_core_layout(mag, n_iters, 0.99, q)
-        want = tgl.griffin_lim_plain(mag, n_iters, 0.99, params=q, precision="default")
-        _assert_close(got.numpy(), want.numpy(), rtol)
+    for mode in ("split_synth", "split_anal"):
+        for n_iters, rtol in ((0, 1e-5), (2, 2e-3)):
+            got = _emulate_tensor_core_layout(mag, n_iters, 0.99, q, mode)
+            want = tgl.griffin_lim_plain(mag, n_iters, 0.99, params=q, loop_dtype=mode)
+            _assert_close(got.numpy(), want.numpy(), rtol)
 
 
 class TestWrapper:

@@ -32,6 +32,10 @@ def test_the_port_has_modules():
     assert "advoc_tpu_torch/ops/kernels/griffin_lim.py" in FILES
     assert {f"advoc_tpu_torch/parallel/{m}.py"
             for m in ("__init__", "mesh", "distributed", "halo", "mp_check")} <= set(FILES)
+    assert {"advoc_tpu_torch/__main__.py", "advoc_tpu_torch/infer/export.py",
+            "advoc_tpu_torch/ops/kernels/registered.py", "advoc_tpu_torch/utils/profiling.py",
+            "advoc_tpu_torch/utils/roofline.py", "advoc_tpu_torch/data/native/__init__.py",
+            "advoc_tpu_torch/train/eval_metrics.py"} <= set(FILES)
     assert len(FILES) >= 10
 
 

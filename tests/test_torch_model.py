@@ -269,18 +269,21 @@ class TestInitAndModes:
         dict(upsample="subpixel"), dict(head_kernel=4),
     ])
     def test_unported_modes_raise(self, cfg):
-        with pytest.raises(NotImplementedError):
-            AdvocGenerator(AdvocConfig(**cfg))
+        """The modes that raised before are ported: each builds, converts
+        from flax and computes the flax generator's function (float32, as
+        test_f32_small; tests/test_torch_model_modes.py has the rest)."""
+        want, got = _pair(32, width=8, depth=3, dtype="float32", **cfg)
+        np.testing.assert_allclose(got, want, atol=2e-5)
 
     def test_discriminator_and_hook_raise(self):
         """PatchDiscriminator, which raised before, is ported
         (tests/test_torch_train.py holds it to flax); it rejects a freq_pack
         that does not divide the bins, as the generator does. The profiling
-        hook still raises."""
+        hook, which raised before, returns the stage's mean (held to flax's
+        in tests/test_torch_model_modes.py)."""
         d = PatchDiscriminator(AdvocConfig(n_frames=32, disc_width=8))
         assert d(torch.zeros(1, 32, 513), torch.zeros(1, 32, 513)).shape == (1, 4, 32, 1)
         with pytest.raises(ValueError, match="freq_pack"):
             PatchDiscriminator(AdvocConfig(freq_pack=3))
         g = AdvocGenerator(AdvocConfig(n_frames=32, width=8, depth=3))
-        with pytest.raises(NotImplementedError):
-            g(torch.zeros(1, 32, 513), truncate_after="down0")
+        assert g(torch.zeros(1, 32, 513), truncate_after="down0").shape == ()

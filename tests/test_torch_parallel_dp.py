@@ -223,9 +223,23 @@ def test_wire_rows_and_rank_rows(setup, monkeypatch):
 
 
 def test_mp_check_reports_a_match():
-    report = mp_check.run_check(num_processes=2)
+    report = mp_check.run_check(num_processes=2, device="cpu")
     assert report["match"], report
     assert report["backend"] == "gloo" and report["devices"] == ["cpu", "cpu"]
+
+
+def test_mp_check_defaults_to_the_card():
+    """The CLI and run_check run on the card unless asked for the CPU, as
+    every other entry point of the port does; without a card the device
+    list raises instead of falling back (nothing is spawned here)."""
+    import inspect
+
+    assert mp_check.parser().parse_args([]).device == "cuda"
+    assert mp_check.parser().parse_args(["--device", "cpu"]).device == "cpu"
+    assert inspect.signature(mp_check.run_check).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mp_check._devices(2, "cuda")
 
 
 def test_only_rank_zero_writes(tmp_path, monkeypatch, capsys):
