@@ -82,44 +82,6 @@ int smem_bytes(int frames, int hb, int stages) {
   return stages * 2 * kTileB + 4 * (frames + 3) * win_pitch(hb) + 2 * stages * 8 + 1024;
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = big + small, both TF32.
-__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(v);
-  small = tf32_rna(v - __uint_as_float(big));
-}
-
-// d[64 x 128] += A[64 x 8] B[8 x 128]: A a tf32 register fragment, B
-// K-major in shared memory.
-__device__ __forceinline__ void wgmma_tf32_128(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // d[64 x 80] += A[64 x 8] B[8 x 80], as wgmma_tf32_128.
 __device__ __forceinline__ void wgmma_tf32_80(float (&d)[40], const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -236,7 +198,7 @@ __global__ void __launch_bounds__(128 * kWG + 32, 1)
     for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        split(a_row[(e & 1) * 8 * pitch + kk * 8 + (e >> 1) * 4], ab[kk][e], as[kk][e]);
+        tf32_split(a_row[(e & 1) * 8 * pitch + kk * 8 + (e >> 1) * 4], ab[kk][e], as[kk][e]);
   };
   float d[64], mel[40];
 #pragma unroll
@@ -296,7 +258,7 @@ __global__ void __launch_bounds__(128 * kWG + 32, 1)
         for (int e = 0; e < 4; ++e) {
           const int j = 2 * sm + kk, i = e & 1, col = e >> 1;
           const float re = d[4 * j + 2 * i + col], im = d[4 * (j + 8) + 2 * i + col];
-          split(sqrtf(re * re + im * im), mb[kk][e], ms[kk][e]);
+          tf32_split(sqrtf(re * re + im * im), mb[kk][e], ms[kk][e]);
         }
       const int s = it % kStages;
       mbar_wait(smem_u32(&full[s]), (it / kStages) & 1);

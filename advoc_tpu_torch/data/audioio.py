@@ -94,13 +94,18 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     return resample_poly(x, sr_out // g, sr_in // g).astype(np.float32)
 
 
-def decode_audio(path: str | pathlib.Path, target_sample_rate: int | None = None) -> np.ndarray:
+def decode_audio(path: str | pathlib.Path, target_sample_rate: int | None = None,
+                 normalize: bool = False) -> np.ndarray:
     """Decode a WAV file to mono float32 in [-1, 1], resampled to
-    ``target_sample_rate`` if given. (The JAX function's ``normalize`` is
-    an option of the port's loader, ``decode_extract_and_batch``.)"""
+    ``target_sample_rate`` if given; ``normalize`` rescales to a 0.95 peak
+    (a silent file stays silent)."""
     x, sr = _decode(str(path))
     if target_sample_rate is not None and sr != target_sample_rate:
         x = resample(x, sr, target_sample_rate)
+    if normalize:
+        peak = np.abs(x).max()
+        if peak > 0:
+            x = x * (0.95 / peak)
     return np.ascontiguousarray(x, dtype=np.float32)
 
 

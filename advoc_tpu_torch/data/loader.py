@@ -84,6 +84,7 @@ def decode_extract_and_batch(
     batch_size: int,
     slice_len: int,
     repeat: bool = True,
+    shuffle: bool = True,
     seed: int = 0,
     normalize: bool = False,
     num_workers: int = 8,
@@ -107,7 +108,9 @@ def decode_extract_and_batch(
 
     Training mode (``repeat=True``): an endless stream of random crops (a
     uniform file, a uniform offset). Eval mode (``repeat=False``): one pass
-    of sequential non-overlapping windows per file. ``sample_rate``, when
+    of sequential non-overlapping windows per file; ``repeat`` alone picks
+    the mode (``shuffle`` is accepted for the JAX signature, which never
+    reads it either). ``sample_rate``, when
     given, must be every file's header rate. A decode error in the producer
     thread is re-raised in the consumer.
     """

@@ -23,10 +23,12 @@ The JAX package's five loop modes (``loop_dtype``; ``precision`` names the
 two that ``spectral.griffin_lim`` selects, "highest" = "float32" and
 "default" = "split_synth"):
 
-* ``"float32"``: fp32 products throughout (JAX's HIGHEST).
-  ``csrc/griffin_lim.cu``: two GEMM-shaped launches an iteration over all
-  SMs, ``gl_synth_ola`` and ``gl_analyze_project`` (fused momentum and
-  projection epilogue), fp32 FMA on the CUDA cores.
+* ``"float32"``: fp32 products throughout (JAX's HIGHEST, 3-pass MXU
+  products). ``csrc/griffin_lim.cu``: two launches an iteration,
+  ``gl_synth_ola`` and ``gl_analyze_project`` (fused momentum and
+  projection epilogue), each product 3xTF32 on the tensor cores (``wgmma``
+  fed by TMA; the maps split once into TF32 big and small halves,
+  :func:`_tf32_maps`, the f32 carries split in registers).
 * ``"split_synth"``, ``"split"``, ``"split_anal"``, ``"bfloat16"``:
   synthesis rounds ``re``/``im`` to bf16 and analysis rounds ``y`` to bf16;
   each side's maps are either a bf16 (hi, lo) pair of the f32 map, two
@@ -37,7 +39,8 @@ two that ``spectral.griffin_lim`` selects, "highest" = "float32" and
   tensor cores (``wgmma`` fed by TMA), the split flag a template argument
   of each. The final synthesis follows JAX's dispatch: the loop's synthesis
   for T ≤ 256 without ``init_phase`` (B1), else the fp32 synthesis of the
-  f32 spectrum (B2's HIGHEST tail), one launch of ``gl_synth_ola``.
+  f32 spectrum (B2's HIGHEST tail), one launch of ``gl_synth_ola`` on the
+  f32 copies of the carries that the last analysis writes.
 
 The kernels take any ``n_fft == 4 · hop`` (hop is a launch argument), the
 same AudioParams the Pallas kernels take.
@@ -47,8 +50,9 @@ is 2·(2·T·F·n_fft) FLOP and analysis 4·2·(2·T·hop·F); at B=128 × 256 f
 F=512 and 30 iterations plus the final synthesis that is ≈4.15 TFLOP, against
 a few hundred MB of carries read and written per iteration. On an H100 SXM
 that is ≈4.2 ms at the 989 TFLOP/s dense bf16 rate of the tensor cores, the
-card's bound for this work (split synthesis does 1.5× it); the fp32 CUDA
-cores cap the ``"highest"`` kernels at ≈62 ms.
+card's bound for this work (split synthesis does 1.5× it); 3xTF32 does it
+three times at the 495 TFLOP/s TF32 rate, a ceiling of ≈25 ms for the
+``"float32"`` kernels (the fp32 CUDA cores would cap them at ≈62 ms).
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import torch
 from advoc_tpu_torch.ops import spectral
 from advoc_tpu_torch.ops.cache import device_cache
 from advoc_tpu_torch.ops.kernels import _build
+from advoc_tpu_torch.ops.kernels.featurizer import _tf32_split
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 
 Tensor = torch.Tensor
@@ -253,9 +258,9 @@ def griffin_lim_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("griffin_lim")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gl_synth_ola.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.gl_synth_ola.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.gl_synth_ola.restype = i
-    lib.gl_analyze_project.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.gl_analyze_project.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, p]
     lib.gl_analyze_project.restype = i
     return lib
 
@@ -308,6 +313,34 @@ def _tc_maps(params: AudioParams, n_bins: int,
             analysis_layout(*_fwd_lo(params, f, device)))
 
 
+@device_cache(maxsize=8)
+def _tf32_maps(params: AudioParams, n_bins: int, device: torch.device) -> tuple[Tensor, Tensor]:
+    """The fp32 kernels' maps, each split into its TF32 (big, small) pair
+    (``featurizer._tf32_split``: ``cvt.rna``'s rounding), zero-padded to
+    F_pad and hop_pad, all K-major f32:
+
+    * ``ws`` (4, 2, 2, hop_pad, F_pad): ws[k, part, bs, s, f] is the big (bs
+      0) or small (bs 1) half of inv_re (part 0) or inv_im (part 1) at
+      [f, k·hop + s], :func:`_tc_maps`' layout;
+    * ``wa`` (2, F_pad / 64, 2, 64, 4, hop_pad): wa[bs, g, part, c, k, s] is
+      the big or small half of fwd_re or fwd_im at [k·hop + s, 64 g + c], so
+      each 128-row tile holds 64 real bins then the same 64 imaginary ones.
+    """
+    c = spectral._dft_consts(params)
+    hop, f = params.hop_length, n_bins
+    fp, hp = _pad64(f), _pad64(hop)
+    ws = np.zeros((4, 2, 2, hp, fp), np.float32)
+    wa = np.zeros((2, fp, 2, 4, hp), np.float32)  # (bs, bin, part, k, s)
+    for part, name in enumerate(("re", "im")):
+        for bs, m in enumerate(_tf32_split(c[f"inv_{name}"][:f])):
+            ws[:, part, bs, :hop, :f] = m.reshape(f, 4, hop).transpose(1, 2, 0)
+        for bs, m in enumerate(_tf32_split(c[f"fwd_{name}"][:, :f])):
+            wa[bs, :f, part, :, :hop] = m.reshape(4, hop, f).transpose(2, 0, 1)
+    wa = wa.reshape(2, fp // 64, 64, 2, 4, hp).transpose(0, 1, 3, 2, 4, 5)
+    return (torch.as_tensor(ws, device=device),
+            torch.as_tensor(np.ascontiguousarray(wa), device=device))
+
+
 def _carry(x: Tensor, b: int, t: int, fp: int, dtype: torch.dtype) -> Tensor:
     """(B, T, F) → the kernel's (3 + B(T+3), F_pad) layout: three zero rows
     before each utterance, zero padded bins."""
@@ -316,59 +349,56 @@ def _carry(x: Tensor, b: int, t: int, fp: int, dtype: torch.dtype) -> Tensor:
     return out
 
 
-def _uncarry(x: Tensor, b: int, t: int, f: int) -> Tensor:
-    """The inverse of :func:`_carry`: (B, T, F), contiguous."""
-    fp = x.shape[-1]
-    return x[3:].view(b, t + 3, fp)[:, :t, :f].contiguous()
-
-
-def _fp32_synth(re: Tensor, im: Tensor, params: AudioParams) -> Tensor:
-    """One ``gl_synth_ola`` launch: (B, T, F) f32 spectrum → (B, T + 3, hop)."""
-    b, t, f = re.shape
-    hop = params.hop_length
+def _fp32_synth(re: Tensor, im: Tensor, y: Tensor, n_bins: int, b: int, t: int,
+                params: AudioParams) -> Tensor:
+    """One ``gl_synth_ola`` launch: the f32 (3 + B(T+3), F_pad) carries
+    ``re`` and ``im`` → ``y``, (B(T+3), hop_pad) f32; returns ``y``."""
     lib = _lib()
-    _, _, inv_re, inv_im = _maps(params, f, re.device)
-    norm = _norm(params, t, hop, re.device)
-    y = torch.empty((b, t + 3, hop), dtype=torch.float32, device=re.device)
-    code = lib.gl_synth_ola(
-        re.data_ptr(), im.data_ptr(), inv_re.data_ptr(), inv_im.data_ptr(),
-        norm.data_ptr(), y.data_ptr(), b, t, f, hop,
-        torch.cuda.current_stream(re.device).cuda_stream,
-    )
+    ws, _ = _tf32_maps(params, n_bins, re.device)
+    hp = y.shape[-1]
+    norm = _norm(params, t, hp, re.device)
+    code = lib.gl_synth_ola(re.data_ptr(), im.data_ptr(), ws.data_ptr(), norm.data_ptr(),
+                            y.data_ptr(), b, t, re.shape[-1], hp,
+                            torch.cuda.current_stream(re.device).cuda_stream)
     _build.check(lib, code, "gl_synth_ola")
     griffin_lim_kernel.launches += 1
     return y
 
 
+def _blocks(y: Tensor, b: int, t: int, params: AudioParams) -> Tensor:
+    """The (B, T·hop) waveform in a synthesis' (B(T+3), hop_pad) blocks."""
+    hop = params.hop_length
+    pad_blocks = (params.n_fft // 2) // hop
+    return y.view(b, t + 3, -1)[:, pad_blocks : pad_blocks + t, :hop].reshape(b, t * hop)
+
+
 def _run_fp32(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams) -> Tensor:
     b, t, f = mag.shape
-    hop = params.hop_length
+    fp, hp = _pad64(f), _pad64(params.hop_length)
     lib = _lib()
-    fwd_re, fwd_im, _, _ = _maps(params, f, mag.device)
-    re, im = (x.contiguous() for x in _init_carries(mag, init_phase))
-    pre, pim = re.clone(), im.clone()
-    stream = torch.cuda.current_stream(mag.device).cuda_stream
+    dev = mag.device
+    _, wa = _tf32_maps(params, f, dev)
+    re, im = (_carry(x, b, t, fp, torch.float32) for x in _init_carries(mag, init_phase))
+    magp = _carry(mag, b, t, fp, torch.float32)
+    pre, pim = torch.zeros_like(magp), torch.zeros_like(magp)
+    y = torch.empty((b * (t + 3), hp), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     for i in range(n_iters):
-        y = _fp32_synth(re, im, params)
+        _fp32_synth(re, im, y, f, b, t, params)
         code = lib.gl_analyze_project(
-            y.data_ptr(), fwd_re.data_ptr(), fwd_im.data_ptr(), mag.data_ptr(),
-            re.data_ptr(), im.data_ptr(), pre.data_ptr(), pim.data_ptr(),
-            b, t, f, hop, 0.0 if i == 0 else momentum, stream,
+            y.data_ptr(), wa.data_ptr(), magp.data_ptr(), pre.data_ptr(), pim.data_ptr(),
+            re.data_ptr(), im.data_ptr(), b, t, fp, hp, 0.0 if i == 0 else momentum, stream,
         )
         _build.check(lib, code, "gl_analyze_project")
         griffin_lim_kernel.launches += 1
-    pad_blocks = (params.n_fft // 2) // hop
-    return _fp32_synth(re, im, params)[:, pad_blocks : pad_blocks + t].reshape(b, t * hop)
+    return _blocks(_fp32_synth(re, im, y, f, b, t, params), b, t, params)
 
 
 def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
             mode: str) -> Tensor:
     b, t, f = mag.shape
-    hop = params.hop_length
-    fp, hp = _pad64(f), _pad64(hop)
+    fp, hp = _pad64(f), _pad64(params.hop_length)
     m_rows = b * (t + 3)
-    if -(-m_rows // 128) > 65535:  # the launch grid's y limit, 128 rows a CTA
-        raise ValueError("griffin_lim_kernel: too many rows for one launch")
     lib = _lib_tc()
     dev = mag.device
     split_anal, split_synth = _SPLIT[mode]
@@ -380,8 +410,8 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
     pre, pim = torch.zeros_like(magp), torch.zeros_like(magp)
     loop_final = _loop_final(t, init_phase)
     re32 = im32 = None
-    if not loop_final and n_iters > 0:
-        re32, im32 = torch.zeros_like(magp), torch.zeros_like(magp)
+    if not loop_final:  # the fp32 tail's spectrum: the last analysis overwrites it
+        re32, im32 = _carry(re0, b, t, fp, torch.float32), _carry(im0, b, t, fp, torch.float32)
     y = torch.empty((m_rows, hp), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -405,16 +435,12 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
         )
         _build.check(lib, code, "gl_tc_analyze")
         griffin_lim_kernel.tc_launches += 1
-    pad_blocks = (params.n_fft // 2) // hop
+    out = torch.empty((m_rows, hp), dtype=torch.float32, device=dev)
     if loop_final:
-        out = torch.empty((m_rows, hp), dtype=torch.float32, device=dev)
         synth(out)
-        blocks = out.view(b, t + 3, hp)[:, :, :hop]
-    elif n_iters == 0:
-        blocks = _fp32_synth(re0.contiguous(), im0.contiguous(), params)
     else:
-        blocks = _fp32_synth(_uncarry(re32, b, t, f), _uncarry(im32, b, t, f), params)
-    return blocks[:, pad_blocks : pad_blocks + t].reshape(b, t * hop)
+        _fp32_synth(re32, im32, out, f, b, t, params)
+    return _blocks(out, b, t, params)
 
 
 def griffin_lim_kernel(
@@ -430,7 +456,7 @@ def griffin_lim_kernel(
     loop mode :func:`loop_mode` picks from ``precision`` and ``loop_dtype``.
 
     On a CUDA tensor: ``"float32"`` runs the fp32 kernels of
-    ``csrc/griffin_lim.cu``, 2·n_iters + 1 launches counted in
+    ``csrc/griffin_lim.cu`` (3xTF32), 2·n_iters + 1 launches counted in
     ``griffin_lim_kernel.launches``; each bf16 mode runs the tensor-core
     kernels of ``csrc/griffin_lim_tc.cu``, counted in
     ``griffin_lim_kernel.tc_launches``: 2·n_iters + 1 for T ≤ 256 without
@@ -467,9 +493,9 @@ def _launch(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
     CUDA implementation, and the eager wrapper's)."""
     if mag.dtype != torch.float32 or not mag.is_contiguous():
         raise ValueError("griffin_lim_kernel needs a contiguous float32 tensor")
-    b, t, f = mag.shape
-    if mode == "float32" and b * (t + 3) * max(f, params.hop_length) >= 2**31:
-        raise ValueError("griffin_lim_kernel indexes with 32-bit offsets")
+    b, t, _ = mag.shape
+    if -(-(b * (t + 3)) // 128) > 65535:  # both libraries' grid y limit, 128 rows a CTA
+        raise ValueError("griffin_lim_kernel: too many rows for one launch")
     # The launchers set their shared-memory attribute and launch on the
     # current device: make it the tensor's.
     with torch.cuda.device(mag.device):

@@ -70,10 +70,13 @@ class CheckpointManager:
     """Save and restore training states by step; keep-k; poll the latest."""
 
     def __init__(self, train_dir: str | pathlib.Path, max_to_keep: int = 5,
-                 use_async: bool = True):
+                 save_interval_steps: int = 1, use_async: bool = True):
+        """``save_interval_steps``: :meth:`save` writes only steps that are
+        multiples of it (and the first), as orbax's cadence does."""
         self.dir = pathlib.Path(train_dir).resolve()
         self.dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.save_interval_steps = save_interval_steps
         self._pool = ThreadPoolExecutor(max_workers=1) if use_async else None
         self._pending: Future | None = None
 
@@ -98,12 +101,18 @@ class CheckpointManager:
         for old in self.all_steps()[: -self.max_to_keep]:
             shutil.rmtree(self.dir / str(old), ignore_errors=True)
 
-    def save(self, step: int, state: Any, wait: bool = False) -> bool:
-        """Save ``state`` at ``step`` unless that step is saved already.
+    def save(self, step: int, state: Any, force: bool = False, wait: bool = False) -> bool:
+        """Save ``state`` at ``step`` unless that step is saved already or,
+        without ``force``, the cadence skips it: a step at or before the
+        latest, or (once there is a checkpoint) off the save interval.
         ``wait``: return only when it is on disk (a synchronous manager
         always does). Returns whether a save was made."""
         self.wait_until_finished()  # one write at a time: keep-k never races it
         if (self.dir / str(step)).exists():
+            return False
+        latest = self.latest_step()
+        if not force and latest is not None and (step <= latest
+                                                 or step % self.save_interval_steps):
             return False
         snapshot = _snapshot(state)
         if self._pool is None:

@@ -155,6 +155,7 @@ def train_loop(
     log_every: int = 50,
     summary_every: int = 100,
     seed: int = 0,
+    hooks: list[Callable] | None = None,
     nan_check_every: int = 200,
     explode_ratio: float = 50.0,
     config: dict | None = None,
@@ -163,7 +164,8 @@ def train_loop(
 
     Resumes from the latest checkpoint in ``train_dir``. ``config`` is
     recorded as ``train_dir/config.json`` and checked on resume
-    (:func:`check_run_config`).
+    (:func:`check_run_config`). Each of ``hooks`` is called as
+    ``h(step, gstate, dstate)`` after every step, on every rank.
 
     NaN guard: every ``nan_check_every`` steps the metrics are read back;
     on a non-finite value the loop saves a checkpoint at that step and
@@ -235,6 +237,8 @@ def train_loop(
             save(step)
             if main:
                 print(f"[train] checkpoint @ {step}", flush=True)
+        for h in hooks or ():
+            h(step, gstate, dstate)
 
     if step > start and step % ckpt_every != 0:
         save(step)

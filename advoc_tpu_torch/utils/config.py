@@ -47,10 +47,12 @@ def apply_overrides(cfg: T, overrides: str | None) -> T:
     return dataclasses.replace(cfg, **updates)
 
 
-def find_wavs(data_dir: str | None) -> list[str]:
+def find_wavs(data_dir: str | None, min_count: int = 1) -> list[str]:
     """The .wav files under ``data_dir`` (recursively), sorted; or the paths
     listed one per line in ``data_dir`` when it is a ``*.txt`` file (the
-    output of scripts/prepare_dataset.py)."""
+    output of scripts/prepare_dataset.py). ``min_count`` is accepted for the
+    JAX signature and, as there, changes nothing: fewer files are returned
+    as they are."""
     if data_dir is None:
         return []
     root = pathlib.Path(data_dir)

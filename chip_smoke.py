@@ -5,8 +5,9 @@
 
 Builds every CUDA kernel of the port from ``advoc_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each kernel against its plain
-PyTorch version on the card: fast G-L in both precisions (the fp32 kernels
-at "highest", the tensor-core kernel at "default", JAX's split_synth), the
+PyTorch version on the card: fast G-L in both precisions (the 3xTF32
+kernels at "highest", the bf16 tensor-core kernel at "default", JAX's
+split_synth), the
 fused featurizer and the packed-tail transpose-conv. Then it drives two
 paths at the full default width (random weights from a seed), each with the
 kernel counts (one per CUDA library) set to 0 just before it and read just
@@ -1656,9 +1657,10 @@ def main() -> int:
         return float((sp.waveform_to_r9y9_melspec(wav)[..., :t, :] - mel).abs().mean())
 
     # -- 2. G-L kernels against their plain version, on the card ---------------
-    # precision="highest", the fp32 kernels (csrc/griffin_lim.cu):
+    # precision="highest", the fp32 kernels (csrc/griffin_lim.cu, 3xTF32):
     # (0) no iteration, the synthesis alone: a linear map in fp32 with K = 2048,
-    # atol 1e-5 × peak (an H100 run showed 6e-7 × peak at most).
+    # atol 1e-5 × peak (H100 runs of the 3xTF32 kernels showed 2.4e-6 × peak
+    # at most).
     # (a) one iteration without momentum: the projection divides by the rebuilt
     # |u|, which is ill-conditioned where |u| is tiny. One fp32 iteration
     # differs from float64 by up to 2e-4 × peak on CPU, and kernel from plain
@@ -1717,6 +1719,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     main_errs: dict[str, list[float]] = {"highest": [], "default": []}
+    gl_mag_b8: dict[int, torch.Tensor] = {}
     # B=8 at 256, 512, 768 and 1024 frames: the shapes vocode_cli's --batch 8
     # groups give the kernel in the serving phase (d); B=8 at 64 frames, a
     # partial tile: the heuristic melspecgan --vocode pipeline's in phase (j).
@@ -1755,10 +1758,12 @@ def main() -> int:
             gl_mag = mag
         elif (b, t) == (1, 1024):
             gl_mag_long = mag  # B2's shape: one utterance past 256 frames
+        elif (b, t, with_init) in ((8, 64, False), (8, 256, False)):
+            gl_mag_b8[t] = mag  # the melspecgan --vocode pipeline's two shapes
 
     # Other AudioParams the kernels take (n_fft = 4 · hop): hop 512 with the
-    # Nyquist bin dropped, hop 250 with a ragged F = 501 (the fp32 kernels'
-    # masked scalar path; the tensor-core kernel pads it to 256 and 512).
+    # Nyquist bin dropped, hop 250 with a ragged F = 501 (both kernels pad it
+    # to 256 and 512).
     for hop, n_bins in ((512, 1024), (250, 501)):
         q = AudioParams(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
         wav = torch.tensor(synthetic_speech(hop, 2 * 128 * hop), device=dev).reshape(2, -1)
@@ -1769,12 +1774,14 @@ def main() -> int:
               f"{fmt(errs)}; tensor-core kernel {fmt(errs_tc)}")
 
     def gl_times(mag: torch.Tensor) -> dict[str, float]:
-        """Both kernels, both plain versions and the bf16 yardstick at one shape."""
+        """Both kernels, both plain versions and the two yardsticks at one shape."""
         b, t, f = mag.shape
-        # The yardstick: one bf16 matmul at the analysis GEMM's shape,
-        # (B·T) × n_fft × 2F (timed only; the port never calls it).
-        a16 = torch.randn((b * t, 4 * HOP), device=dev).to(torch.bfloat16)
-        w16 = torch.randn((4 * HOP, 2 * f), device=dev).to(torch.bfloat16)
+        # The yardsticks: one bf16 and one fp32 matmul (allow_tf32 off: cuBLAS
+        # SGEMM) at the analysis GEMM's shape, (B·T) × n_fft × 2F (timed only;
+        # the port never calls them).
+        a32 = torch.randn((b * t, 4 * HOP), device=dev)
+        w32 = torch.randn((4 * HOP, 2 * f), device=dev)
+        a16, w16 = a32.to(torch.bfloat16), w32.to(torch.bfloat16)
         return {
             "fp32_ms": cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99)),
             "tc_ms": cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99, precision="default")),
@@ -1784,6 +1791,7 @@ def main() -> int:
             "plain_split_ms": cuda_ms(lambda: griffin_lim_plain(mag, 30, 0.99,
                                                                 precision="default")),
             "bf16_matmul_ms": cuda_ms(lambda: a16 @ w16, reps=20),
+            "fp32_matmul_ms": cuda_ms(lambda: a32 @ w32, reps=20),
         }
 
     times = gl_times(gl_mag)
@@ -1792,13 +1800,31 @@ def main() -> int:
     bound_tc, _ = bound(flops, gl_bytes(128, 256, 512))
     bound_fp32 = max(1e3 * flops / (FP32_TFLOPS * 1e12),
                      1e3 * gl_bytes(128, 256, 512) / (HBM_TBPS * 1e12))
+
+    def bound_3xtf32(b: int, t: int) -> float:
+        """The fp32 kernels' ceiling: every product three times at the TF32 rate."""
+        return max(1e3 * 3 * gl_flops(b, t, 512, 30) / (TF32_TC_TFLOPS * 1e12),
+                   1e3 * gl_bytes(b, t, 512) / (HBM_TBPS * 1e12))
+
     print(f"griffin_lim B=128 T=256 F=512 30 iters: fp32 kernel {gl_ms:.2f} ms "
-          f"(repeat {times['fp32_ms_repeat']:.2f}, {flops / gl_ms / 1e9:.1f} TFLOP/s), "
-          f"tensor-core kernel {gl_tc_ms:.2f} ms (repeat {times['tc_ms_repeat']:.2f}, "
-          f"{1.5 * flops / gl_tc_ms / 1e9:.1f} TFLOP/s of split work), plain fp32 "
-          f"{plain_ms:.2f} ms, plain split {times['plain_split_ms']:.2f} ms, bf16 matmul "
-          f"yardstick {times['bf16_matmul_ms']:.3f} ms; {flops / 1e12:.3f} TFLOP; bound "
-          f"{bound_tc:.2f} ms at bf16 tensor cores, fp32 CUDA-core ceiling {bound_fp32:.2f} ms")
+          f"(repeat {times['fp32_ms_repeat']:.2f}, {3 * flops / gl_ms / 1e9:.1f} TFLOP/s of "
+          f"3xTF32 work), tensor-core kernel {gl_tc_ms:.2f} ms (repeat "
+          f"{times['tc_ms_repeat']:.2f}, {1.5 * flops / gl_tc_ms / 1e9:.1f} TFLOP/s of split "
+          f"work), plain fp32 {plain_ms:.2f} ms, plain split {times['plain_split_ms']:.2f} ms, "
+          f"bf16 matmul yardstick {times['bf16_matmul_ms']:.3f} ms, fp32 matmul yardstick "
+          f"{times['fp32_matmul_ms']:.3f} ms; {flops / 1e12:.3f} TFLOP; bound {bound_tc:.2f} ms "
+          f"at bf16 tensor cores, 3xTF32 ceiling {bound_3xtf32(128, 256):.2f} ms, fp32 "
+          f"CUDA-core ceiling {bound_fp32:.2f} ms")
+    # The fp32 kernels at the melspecgan pipeline's shapes (phase (j)).
+    fp32_b8 = {}
+    for t, mag in gl_mag_b8.items():
+        fp32_b8[t] = {"ms": cuda_ms(lambda m=mag: griffin_lim_kernel(m, 30, 0.99)),
+                      "plain_ms": cuda_ms(lambda m=mag: griffin_lim_plain(m, 30, 0.99)),
+                      "bound_ms": bound(gl_flops(8, t, 512, 30), gl_bytes(8, t, 512))[0],
+                      "bound_ms_3xtf32": bound_3xtf32(8, t)}
+        print(f"griffin_lim B=8 T={t} F=512 30 iters: fp32 kernel {fp32_b8[t]['ms']:.3f} ms, "
+              f"plain fp32 {fp32_b8[t]['plain_ms']:.3f} ms, bound {fp32_b8[t]['bound_ms']:.4f} ms, "
+              f"3xTF32 ceiling {fp32_b8[t]['bound_ms_3xtf32']:.4f} ms")
 
     # -- 2b. Fused featurizer (B3) against its plain version --------------------
     # 3xTF32 tensor-core products against fp32 matmuls over the same n_fft
@@ -2007,8 +2033,9 @@ def main() -> int:
           f"tensor-core kernel {times_long['tc_ms']:.2f} ms (repeat "
           f"{times_long['tc_ms_repeat']:.2f}), plain fp32 {times_long['plain_ms']:.2f} ms, "
           f"plain split {times_long['plain_split_ms']:.2f} ms, bf16 matmul yardstick "
-          f"{times_long['bf16_matmul_ms']:.3f} ms, bound {gl_long_bound:.4f} ms at bf16 "
-          f"tensor cores")
+          f"{times_long['bf16_matmul_ms']:.3f} ms, fp32 matmul yardstick "
+          f"{times_long['fp32_matmul_ms']:.3f} ms, bound {gl_long_bound:.4f} ms at bf16 "
+          f"tensor cores, 3xTF32 ceiling {bound_3xtf32(1, 1024):.4f} ms")
 
     def trace(name: str, fn, kernel_names: tuple[str, ...]) -> None:
         """Device trace of one call: the busy share, and the kernels that take
@@ -2027,7 +2054,7 @@ def main() -> int:
             if rank < 10 or any(n_ in k for n_ in kernel_names):
                 print(f"  {ms:8.2f} ms {n:4d}×  {k[:90]}")
 
-    gl_names = ("gl_tc_kernel", "synth_ola_kernel", "analyze_project_kernel")
+    gl_names = ("gl_tc_kernel", "gl_tf32_kernel")
     trace("vocoder B=128×256", lambda: voc(batch), gl_names)
 
     # -- 4. Packed-tail generator against the default one, same weights ----------
@@ -2109,6 +2136,9 @@ def main() -> int:
             "advoc_tpu/ops/pallas/griffin_lim.py:482 griffin_lim_pallas_tiled",
         ],
         "precision": "highest",
+        "design": "3xTF32 wgmma m64n128k8 (A = the f32 carries or y by TMA, split in "
+                  "registers; B = TMA-fed big and small map tiles), each stage's products "
+                  "summed into an f32 accumulator in registers",
         "launches": slice_launches["griffin_lim"],
         "launches_vocoder_path": voc_launches["griffin_lim"],
         "launches_vocoder_highest": hi_launches["griffin_lim"],
@@ -2125,11 +2155,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_tc,
         "bound_by": "operations",
+        "bound_ms_3xtf32": bound_3xtf32(128, 256),
         "bound_ms_fp32_cuda_cores": bound_fp32,
+        "vocoder_highest_call_ms": call_hi_ms,
         "ms_b1_t1024": times_long["fp32_ms"],
         "plain_ms_b1_t1024": times_long["plain_ms"],
         "bound_ms_b1_t1024": gl_long_bound,
-        "library_ms": None,
+        "bound_ms_3xtf32_b1_t1024": bound_3xtf32(1, 1024),
+        **{f"{k}_b8_t{t}": v for t, row in fp32_b8.items() for k, v in row.items()},
+        "library_ms": times["fp32_matmul_ms"],
+        "library": "one fp32 torch.matmul (allow_tf32 off) at the analysis GEMM's shape, "
+                   "(B·T) × n_fft × 2F",
+        "library_ms_b1_t1024": times_long["fp32_matmul_ms"],
     }, {
         "name": "griffin_lim_tc",
         "route": "cuda",

@@ -66,13 +66,32 @@ def test_griffin_lim_kernel_init_phase(dev):
 
 @pytest.mark.parametrize("hop,n_bins", [(512, 1024), (512, 1025), (250, 501)])
 def test_griffin_lim_kernel_other_hops(dev, hop, n_bins):
-    """Any n_fft = 4 · hop: float4 loads where hop % 4 == 0, masked scalar
-    loads otherwise."""
+    """Any n_fft = 4 · hop: F and hop padded to multiples of 64."""
     q = AudioParams(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
     wav = torch.tensor(synthetic_speech(hop, 2 * 64 * hop), device=dev).reshape(2, -1)
     mag = sp.waveform_to_magspec(wav, q)[:, :64, :n_bins].contiguous()
     for n_iters, momentum, rtol in ((0, 0.0, 1e-5), (2, 0.99, 1e-3)):
         y = tgl.griffin_lim_kernel(mag, n_iters, momentum, params=q)
+        want = tgl.griffin_lim_plain(mag, n_iters, momentum, params=q)
+        torch.testing.assert_close(y, want, rtol=0, atol=rtol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,t,n_bins,hop", [(3, 50, 513, 256), (1, 20, 501, 250),
+                                             (2, 30, 101, 50)])
+def test_griffin_lim_fp32_kernel_partial_tiles(dev, b, t, n_bins, hop):
+    """The 3xTF32 kernels where B(T+3) rows end inside a 128-row tile (159,
+    23, 66 rows), at ragged F (513, 501, 101 padded to 576, 512, 128) and a
+    hop_pad of 64 (half a 128-column tile), against the plain version:
+    synthesis within 1e-5 × peak, one and two (momentum 0.99) iterations
+    within 1e-3 × peak; 2·n_iters + 1 launches."""
+    q = AudioParams(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+    wav = torch.tensor(synthetic_speech(hop, b * t * hop + 4 * hop), device=dev)
+    mag = sp.waveform_to_magspec(wav, q)[: b * t, :n_bins].reshape(b, t, n_bins).contiguous()
+    for n_iters, momentum, rtol in ((0, 0.0, 1e-5), (1, 0.0, 1e-3), (2, 0.99, 1e-3)):
+        before = tgl.griffin_lim_kernel.launches
+        y = tgl.griffin_lim_kernel(mag, n_iters, momentum, params=q)
+        torch.cuda.synchronize()
+        assert tgl.griffin_lim_kernel.launches == before + 2 * n_iters + 1
         want = tgl.griffin_lim_plain(mag, n_iters, momentum, params=q)
         torch.testing.assert_close(y, want, rtol=0, atol=rtol * float(want.abs().max()))
 

@@ -32,6 +32,7 @@ from advoc_tpu.ops.pallas.griffin_lim import griffin_lim_pallas, griffin_lim_pal
 from advoc_tpu.ops.reference import DEFAULT_PARAMS as P
 from advoc_tpu.ops.reference import AudioParams as JAudioParams
 from advoc_tpu_torch.ops.kernels import _build
+from advoc_tpu_torch.ops.kernels import featurizer as tfeat
 from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
 from advoc_tpu_torch.ops.reference import AudioParams
 
@@ -331,6 +332,78 @@ def test_tensor_core_operand_layout(hop, n_bins, t):
             got = _emulate_tensor_core_layout(mag, n_iters, 0.99, q, mode)
             want = tgl.griffin_lim_plain(mag, n_iters, 0.99, params=q, loop_dtype=mode)
             _assert_close(got.numpy(), want.numpy(), rtol)
+
+
+def _emulate_tf32_layout(mag, n_iters, momentum, params):
+    """The fp32 kernel's products as dense shifted matmuls over its padded
+    f32 operands (_tf32_maps, _carry, _norm), in 3xTF32: each A row split
+    into TF32 big and small halves by bit arithmetic (cvt.rna's rounding,
+    featurizer._tf32_split), small·big + big·small + big·big summed in f32
+    (each product of two TF32 values is exact in f32). Synthesis reads carry
+    rows r + 3 − k, analysis y rows r + k and the analysis columns come in
+    groups of 64 real then 64 imaginary bins, as in the tensor-core layout."""
+    b, t, f = mag.shape
+    hop = params.hop_length
+    fp, hp = tgl._pad64(f), tgl._pad64(hop)
+    m_rows = b * (t + 3)
+    ws, wa = tgl._tf32_maps(params, f, mag.device)
+    wa = wa.reshape(2, 2 * fp, 4, hp)  # (big|small, 128-row tiles, k, s)
+    rows_norm = tgl._norm(params, t, hp, mag.device).repeat(b, 1)
+    re, im = (tgl._carry(x, b, t, fp, torch.float32) for x in tgl._init_carries(mag, None))
+    magp = tgl._carry(mag, b, t, fp, torch.float32)
+    pre, pim = torch.zeros_like(magp), torch.zeros_like(magp)
+    valid = (torch.arange(m_rows) % (t + 3) < t)[:, None]
+
+    def product(a, big, small):  # a (M, K); the map's halves K-major (N, K)
+        ab, a_s = (torch.from_numpy(x) for x in tfeat._tf32_split(a.numpy()))
+        return a_s @ big.T + ab @ small.T + ab @ big.T
+
+    def synth():
+        acc = torch.zeros((m_rows, hp))
+        for k in range(4):
+            for part, c in enumerate((re, im)):
+                acc += product(c[3 - k : 3 - k + m_rows], ws[k, part, 0], ws[k, part, 1])
+        return acc * rows_norm
+
+    for i in range(n_iters):
+        y = torch.cat([synth(), torch.zeros((3, hp))])
+        acc = sum(product(y[k : k + m_rows], wa[0, :, k], wa[1, :, k]) for k in range(4))
+        acc = acc.reshape(m_rows, fp // 64, 2, 64)
+        ar, ai = acc[:, :, 0].reshape(m_rows, fp), acc[:, :, 1].reshape(m_rows, fp)
+        m = 0.0 if i == 0 else momentum
+        ur = ar + m * (ar - pre[3:])
+        ui = ai + m * (ai - pim[3:])
+        scale = magp[3:] * torch.rsqrt(ur * ur + ui * ui + 1e-12)
+        pre[3:] = torch.where(valid, ar, pre[3:])
+        pim[3:] = torch.where(valid, ai, pim[3:])
+        re[3:] = torch.where(valid, ur * scale, re[3:])
+        im[3:] = torch.where(valid, ui * scale, im[3:])
+    return tgl._blocks(synth(), b, t, params)
+
+
+@pytest.mark.parametrize("hop,n_bins,t", [(256, 513, 40), (50, 101, 30), (250, 501, 20)])
+def test_tf32_operand_layout(hop, n_bins, t):
+    """The padded f32 carry, split map and norm layouts the fp32 (3xTF32)
+    kernel reads compute the float32 plain version's function: synthesis
+    alone within 1e-5 × peak, two iterations at momentum 0.99 within 1e-3 ×
+    peak (chip_smoke.py's gates for the kernel); the maps' halves are TF32
+    values that sum to the maps."""
+    kw = dict(n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+    q = AudioParams(**kw)
+    ws, wa = tgl._tf32_maps(q, n_bins, torch.device("cpu"))
+    for halves in (ws.unbind(2), wa.unbind(0)):
+        assert all(int((h.view(torch.int32) & 0x1FFF).abs().max()) == 0 for h in halves)
+    inv_re = tgl._maps(q, n_bins, torch.device("cpu"))[2]
+    np.testing.assert_allclose((ws[:, 0, 0] + ws[:, 0, 1])[..., :hop, :n_bins].numpy(),
+                               inv_re.reshape(n_bins, 4, hop).permute(1, 2, 0).numpy(),
+                               rtol=2**-21, atol=1e-12)
+    wav = loader.synthetic_speech(hop, 2 * t * hop).reshape(2, -1)
+    mag = torch.tensor(np.asarray(jsp.waveform_to_magspec(
+        jnp.asarray(wav), JAudioParams(**kw)))[:, :t, :n_bins]).contiguous()
+    for n_iters, rtol in ((0, 1e-5), (2, 1e-3)):
+        got = _emulate_tf32_layout(mag, n_iters, 0.99, q)
+        want = tgl.griffin_lim_plain(mag, n_iters, 0.99, params=q, loop_dtype="float32")
+        _assert_close(got.numpy(), want.numpy(), rtol)
 
 
 class TestWrapper:

@@ -215,6 +215,34 @@ class TestCheckpointManager:
         with pytest.raises(FileNotFoundError, match="no checkpoint"):
             CheckpointManager(tmp_path / "empty").restore()
 
+    @staticmethod
+    def _saves_as_jax(tmp_path, calls, **kw):
+        """The same (step, force) saves on JAX's manager and the port's:
+        the same answers, the same steps kept."""
+        from advoc_tpu.train.checkpoint import CheckpointManager as JaxManager
+
+        g, d = _stub_states()
+        jmgr = JaxManager(tmp_path / "jax", max_to_keep=10, use_async=False, **kw)
+        mgr = CheckpointManager(tmp_path / "port", max_to_keep=10, use_async=False, **kw)
+        for step, force in calls:
+            want = jmgr.save(step, {"w": jnp.full((2,), step)}, force=force)
+            assert mgr.save(step, {"g": g, "d": d}, force=force) == want, (step, force)
+        jmgr.close()
+        assert mgr.all_steps() == sorted(int(p.name) for p in (tmp_path / "jax").iterdir()
+                                         if p.name.isdigit())
+        mgr.close()
+        return mgr.all_steps()
+
+    def test_save_interval_steps_as_jax(self, tmp_path):
+        steps = self._saves_as_jax(tmp_path, [(s, False) for s in (1, 2, 3, 4, 2, 5, 6, 9)],
+                                   save_interval_steps=2)
+        assert steps == [1, 2, 4, 6]  # the first, then multiples of 2 past the latest
+
+    def test_save_force_as_jax(self, tmp_path):
+        calls = [(1, False), (2, False), (3, True), (5, False), (4, False), (4, True), (6, False)]
+        steps = self._saves_as_jax(tmp_path, calls, save_interval_steps=3)
+        assert steps == [1, 3, 4, 6]  # forced past the cadence, never over a saved step
+
     def test_optimizer_keeps_its_implementation_flags(self, tmp_path):
         """A state saved from a fused (card) optimizer loads into the CPU's."""
         g, d = _stub_states()

@@ -16,6 +16,7 @@ import torch
 from advoc_tpu.data import audioio as jaudio
 from advoc_tpu.data import loader as jloader
 from advoc_tpu.train import gan as jgan
+from advoc_tpu.utils import config as jconfig
 from advoc_tpu_torch.data import audioio, loader
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator, PatchDiscriminator
 from advoc_tpu_torch.train import gan
@@ -76,6 +77,32 @@ class TestAudio:
         (tmp_path / "list.txt").write_text("\n".join(fps) + "\n")
         assert find_wavs(str(tmp_path / "list.txt")) == fps
         assert find_wavs(None) == [] and find_wavs(str(tmp_path / "none")) == []
+
+
+class TestJaxKeywords:
+    """Keywords of the JAX calls, passed to both packages."""
+
+    def test_decode_audio_normalize_as_jax(self, fps, tmp_path):
+        silent = tmp_path / "silent.wav"
+        audioio.save_as_wav(np.zeros(500, np.float32), silent, 22050)
+        for fp in [*fps, str(silent)]:
+            got = audioio.decode_audio(fp, normalize=True)
+            np.testing.assert_array_equal(got, jaudio.decode_audio(fp, normalize=True))
+            assert float(np.abs(got).max()) == pytest.approx(0.0 if fp == str(silent) else 0.95)
+
+    def test_find_wavs_min_count_as_jax(self, wav_dir, fps):
+        for n in (1, len(fps), 100):
+            assert find_wavs(str(wav_dir), min_count=n) == jconfig.find_wavs(str(wav_dir),
+                                                                             min_count=n) == fps
+
+    @pytest.mark.parametrize("repeat", [True, False])
+    def test_decode_extract_and_batch_shuffle_as_jax(self, fps, repeat):
+        for shuffle in (True, False):
+            kw = dict(batch_size=2, slice_len=3000, repeat=repeat, shuffle=shuffle, seed=5)
+            want = _take(jloader.decode_extract_and_batch(fps, **kw), 3)
+            got = _take(loader.decode_extract_and_batch(fps, **kw), 3)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
 
 
 class TestWireLoader:

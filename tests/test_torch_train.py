@@ -440,6 +440,39 @@ class TestTrainStep:
             np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
 
 
+class TestTrainLoop:
+    def test_hooks_see_each_step_as_jax(self, lsgan, wav, monkeypatch, tmp_path):
+        """``train_loop(hooks=)``: each hook is called as ``h(step, gstate,
+        dstate)`` after every step in both packages, on states that agree
+        (the float64 sums of |G| and |D| within 1e-6 relative)."""
+        from advoc_tpu.train import harness as jharness
+        from advoc_tpu_torch.train import harness
+
+        _share_features(monkeypatch, wav)
+        t = _port_side(lsgan)
+        seen = {"jax": [], "port": []}
+
+        def jax_hook(step, gs, ds):
+            seen["jax"].append((step, int(gs.step), int(ds.step), *(
+                sum(np.abs(np.asarray(x, np.float64)).sum() for x in jax.tree.leaves(s.params))
+                for s in (gs, ds))))
+
+        def port_hook(step, gs, ds):
+            seen["port"].append((step, gs.step, ds.step, *(
+                sum(float(p.detach().double().abs().sum()) for p in s.params) for s in (gs, ds))))
+
+        kw = dict(max_steps=2, ckpt_every=100, log_every=100, summary_every=100,
+                  nan_check_every=0)
+        jharness.train_loop(lsgan.step, lsgan.gs, lsgan.ds, (jnp.asarray(wav) for _ in range(3)),
+                            str(tmp_path / "jax"), hooks=[jax_hook], **kw)
+        harness.train_loop(t.step, t.gs, t.ds, (torch.tensor(wav) for _ in range(3)),
+                           str(tmp_path / "port"), hooks=[port_hook], **kw)
+        assert [r[:3] for r in seen["port"]] == [r[:3] for r in seen["jax"]] == [(1, 1, 1),
+                                                                                (2, 2, 2)]
+        np.testing.assert_allclose([r[3:] for r in seen["port"]], [r[3:] for r in seen["jax"]],
+                                   rtol=1e-6)
+
+
 class TestPackedTail:
     def test_gradients_equal_the_default_layouts(self, wav):
         """On the CPU the packed tail is the plain version (JAX's XLA
