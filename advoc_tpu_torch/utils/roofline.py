@@ -19,8 +19,11 @@ are not meaningful. Caveats, where they bite:
 * The port's hand-written kernels (its registered ``advoc::`` operators and
   their ctypes launches) are invisible to it: count their operations by
   hand from the shapes, as the JAX package does for a Pallas call (the
-  same algorithm, the same required operations), e.g. ``gl_flops`` in
-  ``chip_smoke.py``.
+  same algorithm, the same required operations). :func:`gl_flops`,
+  :func:`gl_bytes`, :func:`feat_work` and :func:`packed_up_work` are those
+  counts for the four kernels, and :func:`bound` turns a count into the
+  least time the card could take; ``chip_smoke.py`` and
+  ``scripts/roofline_torch.py`` both read them here.
 * Its bytes are the floor, each input tensor read once and each output
   written once, not a measurement of the traffic the kernels make.
 * The eager call runs every loop iteration, so no loop is counted once
@@ -46,9 +49,11 @@ class Peaks:
     assumed: bool = False  # True when the device was not recognized
 
 
-_H100_SXM = Peaks("NVIDIA H100 SXM", 989e12, 3.35e12)
+H100_SXM = Peaks("NVIDIA H100 SXM", 989e12, 3.35e12)
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, dense TF32 tensor cores
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 on the CUDA cores
 # Lower-case substrings of torch.cuda.get_device_name: the SXM part (HBM3).
-_KNOWN = {"h100 80gb hbm3": _H100_SXM, "h100 sxm": _H100_SXM}
+_KNOWN = {"h100 80gb hbm3": H100_SXM, "h100 sxm": H100_SXM}
 
 
 def device_peaks(device=None) -> Peaks:
@@ -60,7 +65,7 @@ def device_peaks(device=None) -> Peaks:
     for key, peaks in _KNOWN.items():
         if key in kind.lower():
             return peaks
-    return dataclasses.replace(_H100_SXM, name=f"assumed-H100 SXM ({kind})", assumed=True)
+    return dataclasses.replace(H100_SXM, name=f"assumed-H100 SXM ({kind})", assumed=True)
 
 
 def cost_of(fn: Callable, *args) -> dict:
@@ -139,3 +144,61 @@ def format_table(rows: list[dict], peaks: Peaks) -> str:
             + (" (device not recognized: peaks ASSUMED, shares not meaningful)"
                if peaks.assumed else ""))
     return "\n".join(lines) + note
+
+
+# -- Hand counts of the kernels' work ---------------------------------------------
+# The least work each kernel's function needs at a shape, counted once:
+# the bound column of PERF.md's kernel table and the kernels line of
+# chip_smoke.py, and B1's row of scripts/roofline_torch.py.
+
+
+def gl_flops(b: int, t: int, f: int, n_iters: int, hop: int = 256,
+             split_synth: bool = False) -> float:
+    """Matmul FLOP of one fast-G-L call on (b, t, f) magnitudes (n_fft =
+    4·hop): per row and iteration the synthesis 2·(2·T·F·n_fft) and the
+    analysis 4·2·(2·T·hop·F), plus the final synthesis. ``split_synth``
+    adds the split-synthesis loop's second (lo) synthesis product each
+    iteration, n_iters·2·B·T·F·n_fft·2, as the JAX package's
+    ``scripts/roofline.py`` counts its Pallas kernel."""
+    synth = 2 * (2 * t * f * 4 * hop)
+    anal = 4 * 2 * (2 * t * hop * f)
+    flops = b * (n_iters * (synth + anal) + synth)
+    if split_synth:
+        flops += n_iters * 2 * b * t * f * 4 * hop * 2
+    return float(flops)
+
+
+def gl_bytes(b: int, t: int, f: int, hop: int = 256) -> float:
+    """Bytes of one fast-G-L call with each input read once (the
+    magnitudes, the four f32 DFT maps, the NOLA norm) and the waveform
+    written once: the resident minimum, not the kernels' traffic (they move
+    their carries through HBM between launches)."""
+    return float(4 * (b * t * f + 4 * 4 * hop * f + (t + 3) * hop + b * t * hop))
+
+
+def feat_work(b: int, length: int, hop: int = 256) -> tuple[float, float]:
+    """FLOP and bytes of one fused-featurizer call: the DFT products over 384
+    bins and the mel product per frame; audio, the two maps and the mel map
+    read once, the (B, L//hop, 80) mel written once."""
+    n = b * (length // hop)
+    flops = n * (2 * 2 * 4 * hop * 384 + 2 * 384 * 80)
+    return float(flops), float(4 * (b * length + 2 * 4 * hop * 384 + 384 * 128 + n * 80))
+
+
+def packed_up_work(b: int, h: int, w: int, cin: int, f: int) -> tuple[float, float]:
+    """FLOP and bytes of one packed_up call: 4 taps · cin MACs per output
+    element; x (bf16) and the f32 weights read once, y (bf16) and the sums
+    written once."""
+    out = b * 2 * h * w * 2 * f
+    return (float(out * 4 * cin * 2),
+            float(2 * b * h * w * cin + 4 * (16 * cin * f + f) + 2 * out + 8 * b * 2 * f))
+
+
+def bound(flops: float, nbytes: float,
+          flops_per_s: float = H100_SXM.flops_per_s) -> tuple[float, str]:
+    """(the least ms the card could take, "operations" or "bytes"): the
+    operations at ``flops_per_s`` (default the dense bf16 tensor-core peak)
+    or the bytes at the HBM rate, whichever takes longer."""
+    ops_ms = 1e3 * flops / flops_per_s
+    bytes_ms = 1e3 * nbytes / H100_SXM.hbm_bytes_per_s
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"

@@ -83,6 +83,17 @@ after:
   modes and an even head kernel at full width against the CPU port, timed
   at B=128 × 256, and ``truncate_after`` at every stage; the roofline and
   profiling tools.
+* the repo's tools on the port (:func:`tools`, phase (m)):
+  ``scripts/run_corpus_torch.py --synthetic 16`` at ``AdvocConfig()``
+  (batch 8, 20 steps, the concurrent eval on the card, every stage a child
+  process) and its AOT artifact served here; ``stress_eval_torch.py``
+  through the trained generator, offline and streaming; ``roofline_torch.py``
+  at B=128 × 256 (no row above a peak, B1's row within 15% of (l-a)'s B1
+  time); ``phase_timing_torch.py`` at B=8 × 256 (each method's mel L1 on
+  utterance 0 within 10% of the CPU port's); ``stream_serve_torch.py`` at
+  16 streams on gl and lws_online; ``vocode_client_torch.py`` against the
+  port's server; ``projection_sweep_torch.py``, ``stoi_analysis_torch.py``
+  and ``quality_ab_torch.py --steps 4``.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -99,6 +110,7 @@ import copy
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -110,10 +122,6 @@ import numpy as np
 import torch
 
 SR, HOP = 22050, 256
-FP32_TFLOPS = 67.0  # H100 SXM, CUDA cores (NVIDIA data sheet)
-BF16_TC_TFLOPS = 989.0  # H100 SXM, dense bf16 tensor cores
-TF32_TC_TFLOPS = 495.0  # H100 SXM, dense TF32 tensor cores
-HBM_TBPS = 3.35
 
 
 def require(ok: bool, what: str) -> None:
@@ -155,43 +163,6 @@ def device_trace(fn) -> tuple[float, dict[str, tuple[float, int]]]:
             ms, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (ms + ev.device_time / 1e3, n + 1)
     return start.elapsed_time(end), by_name
-
-
-def gl_flops(b: int, t: int, f: int, n_iters: int) -> float:
-    """Matmul FLOP of one fast-G-L call: synthesis 2·(2·T·F·n_fft) and
-    analysis 4·2·(2·T·hop·F) per row and iteration, plus the final synthesis."""
-    synth = 2 * (2 * t * f * 4 * HOP)
-    anal = 4 * 2 * (2 * t * HOP * f)
-    return b * (n_iters * (synth + anal) + synth)
-
-
-def gl_bytes(b: int, t: int, f: int) -> float:
-    """Each input read once (mag, four maps, norm), the output written once."""
-    return 4 * (b * t * f + 4 * 4 * HOP * f + (t + 3) * HOP + b * t * HOP)
-
-
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least ms the card could take: bf16 tensor-core rate or HBM rate."""
-    ops_ms = 1e3 * flops / (BF16_TC_TFLOPS * 1e12)
-    bytes_ms = 1e3 * nbytes / (HBM_TBPS * 1e12)
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
-
-
-def feat_work(b: int, length: int) -> tuple[float, float]:
-    """FLOP and bytes of one fused-featurizer call: the DFT products over 384
-    bins and the mel product per frame; audio, the two maps and the mel map
-    read once, the (B, L//hop, 80) mel written once."""
-    n = b * (length // HOP)
-    flops = n * (2 * 2 * 4 * HOP * 384 + 2 * 384 * 80)
-    return flops, 4 * (b * length + 2 * 4 * HOP * 384 + 384 * 128 + n * 80)
-
-
-def packed_up_work(b: int, h: int, w: int, cin: int, f: int) -> tuple[float, float]:
-    """FLOP and bytes of one packed_up call: 4 taps · cin MACs per output
-    element; x (bf16) and the f32 weights read once, y (bf16) and the sums
-    written once."""
-    out = b * 2 * h * w * 2 * f
-    return out * 4 * cin * 2, 2 * b * h * w * cin + 4 * (16 * cin * f + f) + 2 * out + 8 * b * 2 * f
 
 
 def serving(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
@@ -922,6 +893,7 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel
     from advoc_tpu_torch.train import gan
     from advoc_tpu_torch.train.checkpoint import CheckpointManager, load_train_generator
+    from advoc_tpu_torch.utils.roofline import bound, gl_bytes, gl_flops
 
     t_start = time.perf_counter()
     zeros = {name: 0 for name in counts()}
@@ -1339,6 +1311,7 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
     from advoc_tpu_torch.train import eval_metrics as em
     from advoc_tpu_torch.utils import profiling, roofline
+    from advoc_tpu_torch.utils.roofline import bound, gl_bytes, gl_flops
 
     t_phase = time.perf_counter()
     out: dict = {"modes": {}}
@@ -1593,6 +1566,177 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
     return out
 
 
+def _script(name: str):
+    """``scripts/<name>.py`` of this checkout, loaded as the module
+    ``port_<name>`` (never by its bare name, which the JAX scripts share)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"port_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
+    """Phase (m): the port's scripts (``scripts/*_torch.py``) on the card.
+    The runbook runs as a child, as a user runs it; the others in-process
+    where the kernel counts are read, each with the counts set to 0 just
+    before it and read just after. ``b1_ms``: (l-a)'s time of B1 at
+    (128, 256), which the roofline's B1 row is held to. Returns the numbers
+    it printed."""
+    from advoc_tpu_torch.infer import StreamingVocoder
+    from advoc_tpu_torch.infer.export import ExportedVocoder
+    from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
+    from advoc_tpu_torch.serve import start_in_thread
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    root = pathlib.Path(__file__).resolve().parent
+    tc = lambda c: c["griffin_lim_tc"]  # noqa: E731
+
+    # -- (m-a) the runbook at AdvocConfig(), full width ----------------------------
+    # 16 synthetic LJ-shaped files, batch 8, 20 steps, a checkpoint every 10,
+    # the concurrent eval on the same card, 30 G-L iterations, 4 clients.
+    run = tmp / "run"
+    cmd = [sys.executable, str(root / "scripts" / "run_corpus_torch.py"),
+           "--corpus_dir", str(tmp / "corpus"), "--run_dir", str(run), "--synthetic", "16",
+           "--batch_size", "8", "--max_steps", "20", "--ckpt_every", "10", "--log_every", "5",
+           "--eval_timeout_s", "30", "--gl_iters", "30", "--serve_clients", "4"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    m = re.search(r"RUN_CORPUS_RESULT (\{.*\})", proc.stdout)
+    if proc.returncode != 0 or not m:
+        print(proc.stdout[-6000:], proc.stderr[-6000:])
+    require(proc.returncode == 0 and m is not None, f"run_corpus_torch rc {proc.returncode}")
+    rc = json.loads(m.group(1))
+    stages = rc["stages_s"]
+    require(rc["ok"] and set(stages) >= {"synthesize", "prep", "train", "bundle", "panel",
+                                          "aot", "build", "serve"},
+            f"run_corpus_torch stages {sorted(stages)}")
+    require(rc["eval_last"] is not None, "the concurrent eval scored no checkpoint")
+    require(rc["serve"] is not None and rc["serve"]["n_clients"] == 4
+            and rc["serve"]["device"].startswith("cuda"), f"serve {rc['serve']}")
+    out["run_corpus"] = rc
+    print(f"(m-a) run_corpus_torch --synthetic 16 AdvocConfig() batch 8, 20 steps: wall "
+          f"{wall:.1f} s; stages s {stages}; steps/s per 5-step window "
+          f"{rc['steps_per_s_windows']} (median of the windows after the first "
+          f"{rc['steps_per_s_median']}); eval_last {rc['eval_last']}; build {rc['build']}; "
+          f"serve p50 {rc['serve']['p50_ms']} ms, p95 {rc['serve']['p95_ms']} ms, "
+          f"aggregate {rc['serve']['aggregate_rtf']}× ({smi})")
+    print("\n".join("(m-a) panel " + ln for ln in rc["panel_tail"]))
+    # The aot stage's artifact, served here: its launches.
+    mel1 = torch.zeros((1, 256, 80), device=dev)
+    exported = ExportedVocoder(run / "aot", device=dev)
+    zero_counts()
+    wav = exported(mel1)
+    torch.cuda.synchronize()
+    out["aot_launches"] = counts()
+    require(tuple(wav.shape) == (1, 256 * HOP) and bool(torch.isfinite(wav).all())
+            and tc(out["aot_launches"]) == 61, f"aot artifact {out['aot_launches']}")
+    print(f"(m-a) the aot stage's artifact (1, 256) served: launches {out['aot_launches']}")
+    train_dir = str(run / "train")
+
+    # -- (m-b) the stress panel through the trained generator ----------------------
+    stress = _script("stress_eval_torch")
+    out["stress"] = {}
+    for how, extra in (("offline", []), ("streaming gl", ["--streaming", "gl"])):
+        zero_counts()
+        panel = stress.main(["--train_dir", train_dir] + extra)
+        torch.cuda.synchronize()
+        out["stress"][how] = {"launches": counts(), "panel": panel}
+        print(f"(m-b) stress_eval_torch {how}: launches {counts()}")
+    require(tc(out["stress"]["offline"]["launches"]) > 0,
+            f"stress panel launches {out['stress']['offline']['launches']}")
+
+    # -- (m-c) the roofline at its defaults ----------------------------------------
+    zero_counts()
+    roof = _script("roofline_torch").main([])
+    torch.cuda.synchronize()
+    out["roofline"] = {"launches": counts(), **roof}
+    for r in roof["rows"]:
+        require(r["mfu"] <= 1.0 and r["bw_frac"] <= 1.0, f"roofline row above a peak: {r}")
+    b1 = next(r for r in roof["rows"] if "B1 kernel" in r["stage"])
+    require(abs(b1["ms"] / b1_ms - 1) <= 0.15,
+            f"roofline B1 row {b1['ms']} ms vs (l-a)'s {b1_ms} ms")
+    require(tc(out["roofline"]["launches"]) > 0, f"roofline launches {counts()}")
+    print(f"(m-c) roofline_torch B=128×256, train batch 16: launches {counts()}; B1 row "
+          f"{b1['ms']:.2f} ms against (l-a)'s {b1_ms:.2f} ms ({smi})")
+    for r in roof["rows"]:
+        print(f"(m-c) roofline {r['stage']}: {r['ms']:.3f} ms, {r['flops'] / 1e9:.1f} GFLOP, "
+              f"{r['bytes'] / 1e6:.1f} MB, {r['tflops_per_s']:.2f} TFLOP/s, MFU "
+              f"{100 * r['mfu']:.2f}%, HBM {100 * r['bw_frac']:.2f}%, SoL {r['sol_ms']:.3f} ms, "
+              f"bound {r['bound']}")
+
+    # -- (m-d) phase timing at its defaults; utterance 0 against the CPU port -------
+    pt = _script("phase_timing_torch")
+    zero_counts()
+    timing = pt.main([])
+    out["phase_timing"] = {"launches": counts(), **timing}
+    mel_c, mag_c = pt.inputs(8, 256, 0, "cpu", P)
+    with torch.inference_mode():
+        for row, (name, fn) in zip(timing["rows"], pt.methods(30, 5, P), strict=True):
+            cpu_l1 = pt.mel_l1_rows(fn(mag_c[:1]), mel_c[:1], P)[0]
+            card_l1 = row["mel_l1_rows"][0]
+            row["cpu_mel_l1_row0"] = cpu_l1
+            require(row["method"] == name and np.isfinite(row["device_ms"])
+                    and np.isfinite(row["mel_l1"]) and card_l1 < 1.1 * cpu_l1 + 1e-3
+                    and cpu_l1 < 1.1 * card_l1 + 1e-3,
+                    f"phase timing {name}: card {card_l1} vs CPU {cpu_l1}")
+            print(f"(m-d) phase_timing {name}: {row['device_ms']:.2f} ms, mel L1 "
+                  f"{row['mel_l1']:.5f}, {row['x_rt']:.1f}× real time; utterance 0 mel L1 "
+                  f"card {card_l1:.5f}, CPU port {cpu_l1:.5f} ({smi})")
+
+    # -- (m-e) streaming: 16 streams, and a client against the port's server --------
+    ss = _script("stream_serve_torch")
+    out["stream_serve"] = {}
+    for engine in ("gl", "lws_online"):
+        zero_counts()
+        r = ss.main(["--engine", engine, "--n_streams", "16", "--fidelity"])
+        out["stream_serve"][engine] = {"launches": counts(), **r}
+        require(r["mel_l1"] < 0.2, f"stream_serve {engine}: mel L1 {r['mel_l1']}")
+        print(f"(m-e) stream_serve_torch {engine} 16 streams: p50 {r['p50_ms']} ms, p95 "
+              f"{r['p95_ms']} ms, {r['ms_per_stream']} ms/stream, {r['aggregate_rtf']}× real "
+              f"time, mel L1 {r['mel_l1']}, STOI {r.get('stoi')}; launches {counts()} ({smi})")
+    sv = StreamingVocoder(params=P, chunk_frames=64, n_streams=16, gl_iters=16,
+                          emit_dtype="int16", device=dev)
+    handle = start_in_thread(sv)
+    try:
+        host, port_ = handle.address
+        r = _script("vocode_client_torch").main(
+            ["--host", host, "--port", str(port_), "--fidelity",
+             "--output", str(tmp / "client.wav")])
+    finally:
+        handle.stop()
+    out["vocode_client"] = r
+    require(r["mel_l1"] < 0.2 and abs(r["seconds_out"] - 4.0) < 0.05,
+            f"vocode_client {r}")
+    print(f"(m-e) vocode_client_torch 4.0 s against the port's server (16 slots, gl): "
+          f"{r['chunks']} chunks, p50 {r['p50_ms']} ms, p95 {r['p95_ms']} ms, "
+          f"{r['seconds_out']} s out, mel L1 {r['mel_l1']} ({smi})")
+
+    # -- (m-f) the research harnesses on the run -------------------------------------
+    for name in ("projection_sweep_torch", "stoi_analysis_torch"):
+        zero_counts()
+        r = _script(name).main(["--train_dir", train_dir, "--n_utts", "2"])
+        torch.cuda.synchronize()
+        out[name] = {"launches": counts(), **r}
+        require(tc(counts()) > 0, f"{name} launches {counts()}")
+        print(f"(m-f) {name} --n_utts 2: launches {counts()}")
+    zero_counts()
+    ab = _script("quality_ab_torch").main(["--steps", "4",
+                                           "--fixture_dir", str(tmp / "ab_fixture")])
+    out["quality_ab"] = ab
+    require(all(np.isfinite(v) for k, v in ab.items() if k.startswith("eval_")),
+            f"quality_ab {ab}")
+    print(f"(m-f) quality_ab_torch --steps 4 AdvocConfig() batch 16: {ab}")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase (m) took {out['phase_s']:.1f} s")
+    return out
+
+
 def synthetic_speech_rows(b: int, length: int, seed: int) -> np.ndarray:
     """(b, length) rows cut from one synthetic signal."""
     from advoc_tpu_torch.data.synthetic import synthetic_speech
@@ -1613,6 +1757,9 @@ def main() -> int:
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
     from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
+    from advoc_tpu_torch.utils.roofline import (
+        FP32_FLOPS_PER_S, TF32_FLOPS_PER_S, bound, feat_work, gl_bytes, gl_flops, packed_up_work,
+    )
 
     dev = torch.device("cuda")
     # True fp32 matmuls: the plain versions and the spectral core need them.
@@ -1798,13 +1945,11 @@ def main() -> int:
     gl_ms, gl_tc_ms, plain_ms = times["fp32_ms"], times["tc_ms"], times["plain_ms"]
     flops = gl_flops(128, 256, 512, 30)
     bound_tc, _ = bound(flops, gl_bytes(128, 256, 512))
-    bound_fp32 = max(1e3 * flops / (FP32_TFLOPS * 1e12),
-                     1e3 * gl_bytes(128, 256, 512) / (HBM_TBPS * 1e12))
+    bound_fp32, _ = bound(flops, gl_bytes(128, 256, 512), FP32_FLOPS_PER_S)
 
     def bound_3xtf32(b: int, t: int) -> float:
         """The fp32 kernels' ceiling: every product three times at the TF32 rate."""
-        return max(1e3 * 3 * gl_flops(b, t, 512, 30) / (TF32_TC_TFLOPS * 1e12),
-                   1e3 * gl_bytes(b, t, 512) / (HBM_TBPS * 1e12))
+        return bound(3 * gl_flops(b, t, 512, 30), gl_bytes(b, t, 512), TF32_FLOPS_PER_S)[0]
 
     print(f"griffin_lim B=128 T=256 F=512 30 iters: fp32 kernel {gl_ms:.2f} ms "
           f"(repeat {times['fp32_ms_repeat']:.2f}, {3 * flops / gl_ms / 1e9:.1f} TFLOP/s of "
@@ -1874,7 +2019,7 @@ def main() -> int:
     feat_flops, feat_bytes = feat_work(128, 256 * HOP)
     feat_bound, feat_by = bound(feat_flops, feat_bytes)
     # The form's ceiling: 3xTF32 does every product three times at the TF32 rate.
-    feat_ceiling = 1e3 * 3 * feat_flops / (TF32_TC_TFLOPS * 1e12)
+    feat_ceiling = bound(3 * feat_flops, 0.0, TF32_FLOPS_PER_S)[0]
     print(f"featurizer B=128 L={256 * HOP}: kernel {feat_ms:.3f} ms "
           f"({feat_flops / feat_ms / 1e9:.1f} TFLOP/s of the work counted once, "
           f"{3 * feat_flops / feat_ms / 1e9:.1f} of 3xTF32 products), plain "
@@ -2124,6 +2269,9 @@ def main() -> int:
     par = parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi)
     rest = rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl_mag,
                            gl_mag_long, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tool = tools(pathlib.Path(tmp), dev, zero_counts, counts, smi,
+                     rest["modes"]["split"]["ms_split_synth"])
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
@@ -2188,6 +2336,13 @@ def main() -> int:
         "launches_vocoder_mesh": par["vocoder_launches"]["griffin_lim_tc"],
         "launches_stress_panel": rest["eval"]["launches"]["griffin_lim_tc"],
         "launches_exported_vocoder": rest["export_default"]["launches"]["griffin_lim_tc"],
+        "launches_tools_run_corpus_aot_artifact": tool["aot_launches"]["griffin_lim_tc"],
+        "launches_tools_stress_panel_trained": tool["stress"]["offline"]["launches"][
+            "griffin_lim_tc"],
+        "launches_tools_roofline": tool["roofline"]["launches"]["griffin_lim_tc"],
+        "launches_tools_projection_sweep": tool["projection_sweep_torch"]["launches"][
+            "griffin_lim_tc"],
+        "launches_tools_stoi_analysis": tool["stoi_analysis_torch"]["launches"]["griffin_lim_tc"],
         "ms_b8_t64": fam["pipeline"]["vocode"]["b1_ms"],
         "bound_ms_b8_t64": fam["pipeline"]["vocode"]["b1_bound_ms"],
         "ms_b8_t256": fam["pipeline"]["advoc"]["b1_ms"],

@@ -120,6 +120,8 @@ def main(argv=None) -> pathlib.Path:
     args = p.parse_args(argv)
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
     from advoc_tpu.train import gan as jgan
     from advoc_tpu.train.checkpoint import CheckpointManager as JaxManager
     from advoc_tpu_torch.train.checkpoint import CheckpointManager
@@ -130,8 +132,11 @@ def main(argv=None) -> pathlib.Path:
     (g_lr, b1, b2), (d_lr, d_b1, d_b2) = ADAM[args.family]
     g_lr = args.lr or g_lr
     d_lr = args.d_lr or args.lr or d_lr
-    gstate, dstate = jgan.make_states(jg, jd, g_init, d_init, g_tx=jgan.adam(g_lr, b1, b2),
-                                      d_tx=jgan.adam(d_lr, d_b1, d_b2))
+    # The restore's template: only its structure counts, so it is built
+    # under jit (eager flax init of both models takes tens of seconds).
+    gstate, dstate = jax.jit(lambda: jgan.make_states(
+        jg, jd, g_init, d_init, g_tx=jgan.adam(g_lr, b1, b2),
+        d_tx=jgan.adam(d_lr, d_b1, d_b2)))()
     jmgr = JaxManager(src)
     step = args.step if args.step is not None else jmgr.latest_step()
     if step is None:
