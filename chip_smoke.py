@@ -94,6 +94,13 @@ after:
   16 streams on gl and lws_online; ``vocode_client_torch.py`` against the
   port's server; ``projection_sweep_torch.py``, ``stoi_analysis_torch.py``
   and ``quality_ab_torch.py --steps 4``.
+* the headline benchmark (:func:`bench`, phase (n)): ``bench_torch.py`` as
+  a user runs it, a child process, then again with ``ADVOC_BENCH_FULL=1``
+  (its extended panel): each exits 0 after its own checks (finite output,
+  the kernel and matmul G-L within 2e-3 mel L1) with a result line whose
+  × real time is positive, whose mfu lies in (0, 1.05], whose device is
+  this card and whose headline call launched B1 61 times; the headline's
+  median beside phase (m)'s roofline whole call.
 
 It checks that the waveforms are right, holds the packed-tail generator to
 the default one on the same weights, times every kernel beside its plain
@@ -109,6 +116,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -1737,6 +1745,62 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
     return out
 
 
+def bench(smi: str, whole_ms: float) -> dict:
+    """Phase (n): ``bench_torch.py`` run as a child process, as a user runs
+    it, then with ``ADVOC_BENCH_FULL=1``; each result line checked. Its
+    launches are counted by the child and reported in its line. ``whole_ms``:
+    phase (m)'s roofline time of the whole call, which the headline's median
+    is printed beside. Returns both result lines."""
+    t_phase = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    kind = torch.cuda.get_device_name(0)
+    panel = {"cfg1_heuristic", "cfg3_train_step", "cfg6_long_form", "cfg7_streams_1",
+             "cfg7_streams_16", "cfg5_wavegan"}
+    torch.cuda.empty_cache()  # the children need the card's memory
+    out: dict = {}
+    for mode, full in (("headline", False), ("full", True)):
+        env = {k: v for k, v in os.environ.items() if k != "ADVOC_BENCH_FULL"}
+        if full:
+            env["ADVOC_BENCH_FULL"] = "1"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=400)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        try:
+            line = json.loads(lines[-1]) if lines else None
+        except json.JSONDecodeError:
+            line = None
+        if proc.returncode != 0 or not isinstance(line, dict):
+            print(proc.stdout[-4000:], proc.stderr[-8000:])
+        require(proc.returncode == 0 and isinstance(line, dict),
+                f"bench_torch.py {mode}: rc {proc.returncode}, last line {lines[-1:]}")
+        require(line["metric"] == "vocoding_realtime_factor" and line["value"] > 0,
+                f"bench_torch.py {mode}: value {line['value']}")
+        require(line["mfu"] is not None and 0 < line["mfu"] <= 1.05,
+                f"bench_torch.py {mode}: mfu {line['mfu']}")
+        require(line["device"] == kind, f"bench_torch.py {mode}: device {line['device']!r}")
+        require(line["gl_launches_per_call"]["griffin_lim_tc"] == 61,
+                f"bench_torch.py {mode}: B1 launches a call {line['gl_launches_per_call']}")
+        require(not full or set(line.get("extended", {})) == panel,
+                f"bench_torch.py {mode}: extended panel {sorted(line.get('extended', {}))}")
+        if full:
+            wavegan = line["extended"]["cfg5_wavegan"]
+            require(0 < wavegan["mfu"] <= 1.05, f"bench_torch.py {mode}: WaveGAN {wavegan}")
+        out[mode] = line
+        print("\n".join(f"(n) {mode} " + ln for ln in proc.stderr.strip().splitlines()
+                        if ln.startswith("[bench")))
+        print(f"(n) bench_torch.py {mode} ({wall:.1f} s; {smi}): {json.dumps(line)}")
+    head = out["headline"]
+    print(f"(n) headline median {head['ms_median']:.3f} ms (p25 {head['ms_p25']:.3f}, p75 "
+          f"{head['ms_p75']:.3f}, {head['n_trials']} trials of {head['k']}), {head['value']:.1f}× "
+          f"real time, mfu {head['mfu']:.4f}; the ADVOC_BENCH_FULL run's "
+          f"{out['full']['ms_median']:.3f} ms; (m-c) roofline whole call {whole_ms:.3f} ms ({smi})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase (n) took {out['phase_s']:.1f} s")
+    return out
+
+
 def synthetic_speech_rows(b: int, length: int, seed: int) -> np.ndarray:
     """(b, length) rows cut from one synthetic signal."""
     from advoc_tpu_torch.data.synthetic import synthetic_speech
@@ -2272,6 +2336,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
         tool = tools(pathlib.Path(tmp), dev, zero_counts, counts, smi,
                      rest["modes"]["split"]["ms_split_synth"])
+    bn = bench(smi, next(r["ms"] for r in tool["roofline"]["rows"]
+                         if r["stage"].startswith("WHOLE")))
 
     # -- 7. Kernels line, then the result ---------------------------------------
     print(json.dumps({"kernels": [{
@@ -2343,6 +2409,7 @@ def main() -> int:
         "launches_tools_projection_sweep": tool["projection_sweep_torch"]["launches"][
             "griffin_lim_tc"],
         "launches_tools_stoi_analysis": tool["stoi_analysis_torch"]["launches"]["griffin_lim_tc"],
+        "launches_bench_torch_per_call": bn["headline"]["gl_launches_per_call"]["griffin_lim_tc"],
         "ms_b8_t64": fam["pipeline"]["vocode"]["b1_ms"],
         "bound_ms_b8_t64": fam["pipeline"]["vocode"]["b1_bound_ms"],
         "ms_b8_t256": fam["pipeline"]["advoc"]["b1_ms"],

@@ -3,12 +3,13 @@
 on the PyTorch port.
 
 The port's copy of ``scripts/roofline.py``. For each stage of the
-full-width B=128 × 256-frame Vocoder call (featurize + pinv estimate,
-U-Net forward, db→amp + mel projection, fast G-L ×30 in the matmul form,
-fast G-L ×30 through B1, the tensor-core G-L kernel the Vocoder ships, and
-the whole call) and for the advoc GAN train step it reports FLOPs, bytes,
-achieved TFLOP/s, the share of the bf16 tensor-core peak, the share of HBM
-bandwidth and the speed-of-light time.
+full-width B=128 × 256-frame Vocoder call, ``bench_torch.py``'s graph
+(``VocodeGraph``: featurize + pinv estimate, U-Net forward, db→amp + mel
+projection, fast G-L ×30 in the matmul form, fast G-L ×30 through B1, the
+tensor-core G-L kernel the Vocoder ships, and the whole call) and for the
+advoc GAN train step it reports FLOPs, bytes, achieved TFLOP/s, the share
+of the bf16 tensor-core peak, the share of HBM bandwidth and the
+speed-of-light time.
 
 Method (``advoc_tpu_torch/utils/roofline.py``): FLOPs by
 ``FlopCounterMode`` (matrix products and convolutions; elementwise work
@@ -33,11 +34,14 @@ version). Prints the markdown table on stderr and ONE machine-readable
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from bench_torch import VocodeGraph, headline_mel, seeded  # noqa: E402
 
 
 def log(msg: str) -> None:
@@ -64,7 +68,6 @@ def main(argv=None) -> dict:
 
     from advoc_tpu_torch.data.synthetic import synthetic_speech
     from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator, PatchDiscriminator
-    from advoc_tpu_torch.ops import spectral
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P
     from advoc_tpu_torch.train import gan
     from advoc_tpu_torch.train.harness import train_device
@@ -77,44 +80,21 @@ def main(argv=None) -> dict:
         f"B1 {'kernel' if on_card else 'plain version (CPU)'}")
 
     cfg = AdvocConfig()
-    g = AdvocGenerator(cfg)
-    g.reset_parameters(torch.Generator().manual_seed(0))
-    g = g.to(dev).eval()
-    B, T, M = args.batch, cfg.n_frames, P.n_mels
+    g = seeded(AdvocGenerator(cfg), 0, dev)
+    B, T = args.batch, cfg.n_frames
     hop, n = P.hop_length, args.gl_iters
 
-    wav = torch.tensor(synthetic_speech(0, B * T * hop), device=dev)
-    mel = spectral.waveform_to_r9y9_melspec(wav, P)[: B * T].reshape(B, T, M)
-
-    # --- stage functions (the Vocoder call, cut at its stage seams) ---
-    def featurize(mel):
-        est = spectral.r9y9_melspec_to_magspec(mel, P)
-        return spectral.normalize_db(spectral.amp_to_db(est, P) - P.ref_level_db, P)
-
-    def unet(est_norm):
-        with torch.inference_mode():
-            return g(est_norm)
-
-    def to_mag_project(repaired, mel):
-        mag = spectral.db_to_amp(spectral.denormalize_db(repaired, P) + P.ref_level_db)
-        return spectral.mel_consistency_project(mag, mel, P)
-
-    def gl(mag, impl):
-        # The matmul form at JAX's DEFAULT precision (bf16 operands), the
-        # scan the JAX script counts; "kernel" is the Vocoder's shipped
-        # form (the tensor-core kernel at split_synth, on n_fft/2 bins).
-        return spectral.griffin_lim(mag, T * hop, n_iters=n, momentum=0.99, params=P,
-                                    precision="default", fft_impl=impl,
-                                    drop_nyquist=impl == "kernel")
-
-    def fused(mel, impl):
-        with torch.inference_mode():
-            return gl(to_mag_project(unet(featurize(mel)), mel), impl)
-
+    mel = headline_mel(B, T, dev)
+    # bench_torch.py's graph, cut at its stage seams: the shipped form (G-L
+    # through B1, the tensor-core kernel at split_synth on n_fft/2 bins), and
+    # the matmul form at JAX's DEFAULT precision (bf16 operands), the scan
+    # the JAX script counts.
+    graph = VocodeGraph(g, n)
+    mm = dataclasses.replace(graph, impl="matmul")
     with torch.inference_mode():
-        est_norm = featurize(mel)
-        repaired = unet(est_norm)
-        mag = to_mag_project(repaired, mel)
+        est_norm = graph.featurize(mel)
+        repaired = graph.unet(est_norm)
+        mag = graph.to_mag(repaired, mel)
 
     rows = []
 
@@ -129,20 +109,20 @@ def main(argv=None) -> dict:
             f"{row['mfu'] * 100:.1f}% MFU, {row['bw_frac'] * 100:.0f}% BW, bound={row['bound']}")
         return row
 
-    stage("featurize+pinv estimate", featurize, mel)
-    stage("U-Net forward", unet, est_norm)
-    stage("db→amp + mel projection", to_mag_project, repaired, mel)
-    gl_mm = stage(f"fast-GL ×{n} (matmul form)", lambda m: gl(m, "matmul"), mag)
+    stage("featurize+pinv estimate", graph.featurize, mel)
+    stage("U-Net forward", graph.unet, est_norm)
+    stage("db→amp + mel projection", graph.to_mag, repaired, mel)
+    gl_mm = stage(f"fast-GL ×{n} (matmul form)", mm.gl, mag)
     # B1: the hand count (FlopCounterMode cannot see the kernel).
     b1 = {"flops": rl.gl_flops(B, T, 512, n, hop, split_synth=True),
           "bytes": rl.gl_bytes(B, T, 512, hop)}
-    stage(f"fast-GL ×{n} (B1 kernel, shipped)", lambda m: gl(m, "kernel"), mag, cost=b1,
+    stage(f"fast-GL ×{n} (B1 kernel, shipped)", graph.gl, mag, cost=b1,
           note=f"hand count (utils/roofline.py gl_flops split_synth, gl_bytes); bytes are "
                f"the resident minimum: the kernel's {2 * n + 1} launches move "
                f"the carries through HBM, so its traffic is higher")
-    whole_cost = rl.cost_of(lambda m: fused(m, "matmul"), mel)
+    whole_cost = rl.cost_of(mm, mel)
     whole_cost["flops"] += b1["flops"] - gl_mm["flops"]
-    stage("WHOLE fused vocoder (shipped)", lambda m: fused(m, "kernel"), mel,
+    stage("WHOLE fused vocoder (shipped)", graph, mel,
           cost=whole_cost, note="the matmul G-L's count replaced by B1's hand count")
 
     # --- the train step ---

@@ -21,7 +21,7 @@ SCRIPTS = [f"scripts/{name}_torch.py" for name in (
     "quality_ab")] + ["scripts/gl_fp32_ablation.py"]
 FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "advoc_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"] + SCRIPTS
+) + ["chip_smoke.py", "bench_torch.py"] + SCRIPTS
 
 
 def _imported_modules(tree: ast.AST):
