@@ -24,6 +24,7 @@ from advoc_tpu_torch.ops import spectral
 from advoc_tpu_torch.ops.cache import device_cache
 from advoc_tpu_torch.ops.reference import AudioParams, DEFAULT_PARAMS
 from advoc_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from advoc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -60,23 +61,27 @@ def chunked_generator_apply(generator, chunk: int, overlap: int, t_frames: int):
     Returns ``est_norm (B, t_frames, F) → mag_norm``: every window of every
     row goes through ``generator`` in one batch, and the outputs are joined
     by the crossfade weights (normalized, so the fade cancels at the edges).
+    Under a profiler the whole is the range ``advoc.windows`` and the
+    generator's call in it ``advoc.unet``
+    (:func:`~advoc_tpu_torch.utils.profiling.span`).
     """
     starts = [int(s) for s in _chunk_windows(t_frames, chunk, chunk - overlap)]
 
     def apply(est_norm: Tensor) -> Tensor:
         b, _, n_bins = est_norm.shape
-        weights = _crossfade_on(chunk, overlap, est_norm.device)
-        chunks = torch.stack([est_norm[:, s : s + chunk] for s in starts], dim=1)
-        nc = len(starts)
-        repaired = generator(chunks.reshape(b * nc, chunk, n_bins)).reshape(
-            b, nc, chunk, n_bins
-        )
-        num = torch.zeros_like(est_norm)
-        den = est_norm.new_zeros((1, t_frames, 1))
-        for i, s in enumerate(starts):
-            num[:, s : s + chunk] += repaired[:, i] * weights
-            den[:, s : s + chunk] += weights
-        return num / torch.clamp(den, min=1e-8)
+        with profiling.span("windows"):
+            weights = _crossfade_on(chunk, overlap, est_norm.device)
+            chunks = torch.stack([est_norm[:, s : s + chunk] for s in starts], dim=1)
+            nc = len(starts)
+            with profiling.span("unet"):
+                repaired = generator(chunks.reshape(b * nc, chunk, n_bins))
+            repaired = repaired.reshape(b, nc, chunk, n_bins)
+            num = torch.zeros_like(est_norm)
+            den = est_norm.new_zeros((1, t_frames, 1))
+            for i, s in enumerate(starts):
+                num[:, s : s + chunk] += repaired[:, i] * weights
+                den[:, s : s + chunk] += weights
+            return num / torch.clamp(den, min=1e-8)
 
     return apply
 
@@ -199,11 +204,15 @@ class Vocoder:
 
     def _run(self, mel: Tensor, generator) -> Tensor:
         """(B, T, M) bucketed mel → (B, T·hop) waveform, on mel's device with
-        ``generator`` (the Vocoder's, or its replica there)."""
+        ``generator`` (the Vocoder's, or its replica there). Under a profiler
+        its stages are the ranges ``advoc.estimate``, ``advoc.windows``
+        (:func:`chunked_generator_apply`), ``advoc.project`` and
+        ``advoc.gl``."""
         p = self.params
         t_frames = mel.shape[1]
-        est = spectral.r9y9_melspec_to_magspec(mel, p)
-        est_norm = spectral.normalize_db(spectral.amp_to_db(est, p) - p.ref_level_db, p)
+        with profiling.span("estimate"):
+            est = spectral.r9y9_melspec_to_magspec(mel, p)
+            est_norm = spectral.normalize_db(spectral.amp_to_db(est, p) - p.ref_level_db, p)
         if generator is not None:
             apply = chunked_generator_apply(generator, self.chunk, self.overlap, t_frames)
             mag_norm = apply(est_norm)
@@ -211,53 +220,58 @@ class Vocoder:
             mag_norm = est_norm
         mag = spectral.db_to_amp(spectral.denormalize_db(mag_norm, p) + p.ref_level_db)
         if self.mel_projection > 0.0:
-            mag = spectral.mel_consistency_project(mag, mel, p, strength=self.mel_projection)
+            with profiling.span("project"):
+                mag = spectral.mel_consistency_project(mag, mel, p, strength=self.mel_projection)
         length = t_frames * p.hop_length
-        if self.phase_method == "lws_exact":
-            return spectral.lws(mag, length, n_sweeps=self.gl_iters, params=p)
-        init = (spectral.pghi_init_phase(mag, p, self.pghi_coef)
-                if self.phase_init == "pghi" else None)
-        if self._use_kernel():
-            # The Nyquist bin is the heuristic estimate passed through when
-            # the mel basis has no support there (fmax < sr/2), so the loop
-            # runs on exactly n_fft/2 bins.
+        with profiling.span("gl"):
+            if self.phase_method == "lws_exact":
+                return spectral.lws(mag, length, n_sweeps=self.gl_iters, params=p)
+            init = (spectral.pghi_init_phase(mag, p, self.pghi_coef)
+                    if self.phase_init == "pghi" else None)
+            if self._use_kernel():
+                # The Nyquist bin is the heuristic estimate passed through when
+                # the mel basis has no support there (fmax < sr/2), so the loop
+                # runs on exactly n_fft/2 bins.
+                return spectral.griffin_lim(
+                    mag, length, n_iters=self.gl_iters, momentum=self.momentum,
+                    params=p, fft_impl="kernel", precision=self.gl_precision,
+                    drop_nyquist=p.fmax < 0.5 * p.sample_rate, init_phase=init,
+                )
             return spectral.griffin_lim(
-                mag, length, n_iters=self.gl_iters, momentum=self.momentum,
-                params=p, fft_impl="kernel", precision=self.gl_precision,
-                drop_nyquist=p.fmax < 0.5 * p.sample_rate, init_phase=init,
+                mag, length, n_iters=self.gl_iters, momentum=self.momentum, params=p,
+                precision=self.gl_precision, init_phase=init,
             )
-        return spectral.griffin_lim(
-            mag, length, n_iters=self.gl_iters, momentum=self.momentum, params=p,
-            precision=self.gl_precision, init_phase=init,
-        )
 
     def __call__(self, mel) -> Tensor:
         """Vocode (T, M) or (B, T, M), numpy or tensor; returns a float32
-        tensor on the Vocoder's device, cropped to the true length."""
-        if not torch.is_tensor(mel):
-            mel = torch.tensor(np.asarray(mel, np.float32))
-        mel = mel.to(self.device, torch.float32)
-        squeeze = mel.ndim == 2
-        if squeeze:
-            mel = mel[None]
-        t = mel.shape[1]
-        tb = self.bucket(t)
-        if tb != t:  # silence-level mel (0.0 is the dB floor after normalize)
-            mel = torch.nn.functional.pad(mel, (0, 0, 0, tb - t))
-        length = t * self.params.hop_length
-        with torch.inference_mode():
-            if self.mesh is None:
-                wav = self._run(mel, self.generator)[:, :length]
-            else:
-                b, n = mel.shape[0], self.mesh.size
-                if b % n:  # silent rows to a whole shard each, cropped below
-                    mel = torch.nn.functional.pad(mel, (0, 0, 0, 0, 0, n - b % n))
-                gens = (replicate(self.generator, self.mesh) if self.generator is not None
-                        else [None] * n)
-                parts = [self._run(m, g)[:, :length]
-                         for m, g in zip(shard_batch(mel, self.mesh), gens, strict=True)]
-                wav = torch.cat([x.to(self.device, non_blocking=True) for x in parts])[:b]
-        return wav[0] if squeeze else wav
+        tensor on the Vocoder's device, cropped to the true length. Under a
+        profiler the call is the range ``advoc.vocode`` (on a mesh, with
+        each shard's stages in it)."""
+        with profiling.span("vocode"):
+            if not torch.is_tensor(mel):
+                mel = torch.tensor(np.asarray(mel, np.float32))
+            mel = mel.to(self.device, torch.float32)
+            squeeze = mel.ndim == 2
+            if squeeze:
+                mel = mel[None]
+            t = mel.shape[1]
+            tb = self.bucket(t)
+            if tb != t:  # silence-level mel (0.0 is the dB floor after normalize)
+                mel = torch.nn.functional.pad(mel, (0, 0, 0, tb - t))
+            length = t * self.params.hop_length
+            with torch.inference_mode():
+                if self.mesh is None:
+                    wav = self._run(mel, self.generator)[:, :length]
+                else:
+                    b, n = mel.shape[0], self.mesh.size
+                    if b % n:  # silent rows to a whole shard each, cropped below
+                        mel = torch.nn.functional.pad(mel, (0, 0, 0, 0, 0, n - b % n))
+                    gens = (replicate(self.generator, self.mesh) if self.generator is not None
+                            else [None] * n)
+                    parts = [self._run(m, g)[:, :length]
+                             for m, g in zip(shard_batch(mel, self.mesh), gens, strict=True)]
+                    wav = torch.cat([x.to(self.device, non_blocking=True) for x in parts])[:b]
+            return wav[0] if squeeze else wav
 
     def vocode_longform(
         self,

@@ -30,6 +30,10 @@ the families' shared :mod:`advoc_tpu_torch.models.layers`:
 returns ``mean(x)`` in float32 right after the named stage (``down{i}``,
 ``bottleneck``, ``up{i}``) and runs nothing after it.
 
+Under a profiler every convolution (with its casts) is the range
+``advoc.conv`` and every normalisation with its activation ``advoc.norm``
+(:func:`~advoc_tpu_torch.utils.profiling.span`).
+
 ``AdvocConfig(packed_tail=True)`` computes the finest decoder level and the
 1×1 head in the packed layout (B, T, W, 2f) of the JAX package
 (:class:`_PackedTailUp`), with the same parameters and function.
@@ -59,6 +63,7 @@ from advoc_tpu_torch.models.layers import (
 )
 from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
+from advoc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -102,9 +107,10 @@ class _Down(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         x = conv_same(x, self.conv, self.dtype)
-        if self.norm is not None:
-            x = self.norm(x)
-        return F.leaky_relu(x, 0.2)
+        if self.norm is None:
+            return F.leaky_relu(x, 0.2)
+        with profiling.span("norm"):
+            return F.leaky_relu(self.norm(x), 0.2)
 
 
 class _Up(nn.Module):
@@ -150,7 +156,8 @@ class _Up(nn.Module):
         else:  # resize: nearest ×2 (each pixel repeated, as jax.image.resize), 4×4 SAME conv
             x = conv_same(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3),
                           self.conv, dt)
-        return F.relu(self.norm(x))
+        with profiling.span("norm"):
+            return F.relu(self.norm(x))
 
 
 class _PackedTailUp(nn.Module):
@@ -184,27 +191,30 @@ class _PackedTailUp(nn.Module):
         b, h, w, _ = x.shape
         f, groups = self.features, self.norm.groups
         # The converter flips the flax kernel; B4 takes flax's (4, 4, cin, f).
-        wt = self.conv.weight.flip(2, 3).permute(2, 3, 0, 1)
-        if self.dtype == torch.bfloat16 and x.is_cuda:
-            _build.refuse_grad([x, *self.parameters()], "packed_tail (kernel B4)",
-                               "the same parameters with packed_tail=False")
-            tm = next(t for t in (16, 8, 4, 2, 1) if h % t == 0 and (h // 2) % t == 0)
-            y, s1, s2 = packed_up_kernel(x.to(self.dtype).contiguous(), wt, self.conv.bias,
-                                         f=f, tm=tm, with_stats=True)
-        else:  # tm does not change the function; 1 divides every H // 2
-            y, s1, s2 = packed_up_plain(x.to(self.dtype), wt, self.conv.bias, f=f, tm=1,
-                                        with_stats=True)
-        lane_group = torch.arange(groups, device=x.device).repeat_interleave(f // groups).repeat(2)
-        onehot = F.one_hot(lane_group, groups).to(torch.float32)  # (2f, G)
-        count = 2 * h * w * 2 * (f // groups)
-        mean = (s1 @ onehot) / count
-        var = (s2 @ onehot) / count - mean * mean
-        inv = torch.rsqrt(var + 1e-6)
-        scale = (inv @ onehot.T) * self.norm.weight.repeat(2)  # (B, 2f)
-        shift = self.norm.bias.repeat(2) - (mean @ onehot.T) * scale
-        # Out of place: y (and Σy, Σy² from it) stays as autograd saved it.
-        yf = torch.addcmul(shift[:, None, None], y.to(torch.float32), scale[:, None, None])
-        return F.relu(yf.to(self.dtype))
+        with profiling.span("conv"):
+            wt = self.conv.weight.flip(2, 3).permute(2, 3, 0, 1)
+            if self.dtype == torch.bfloat16 and x.is_cuda:
+                _build.refuse_grad([x, *self.parameters()], "packed_tail (kernel B4)",
+                                   "the same parameters with packed_tail=False")
+                tm = next(t for t in (16, 8, 4, 2, 1) if h % t == 0 and (h // 2) % t == 0)
+                y, s1, s2 = packed_up_kernel(x.to(self.dtype).contiguous(), wt, self.conv.bias,
+                                             f=f, tm=tm, with_stats=True)
+            else:  # tm does not change the function; 1 divides every H // 2
+                y, s1, s2 = packed_up_plain(x.to(self.dtype), wt, self.conv.bias, f=f, tm=1,
+                                            with_stats=True)
+        with profiling.span("norm"):
+            lane_group = (torch.arange(groups, device=x.device)
+                          .repeat_interleave(f // groups).repeat(2))
+            onehot = F.one_hot(lane_group, groups).to(torch.float32)  # (2f, G)
+            count = 2 * h * w * 2 * (f // groups)
+            mean = (s1 @ onehot) / count
+            var = (s2 @ onehot) / count - mean * mean
+            inv = torch.rsqrt(var + 1e-6)
+            scale = (inv @ onehot.T) * self.norm.weight.repeat(2)  # (B, 2f)
+            shift = self.norm.bias.repeat(2) - (mean @ onehot.T) * scale
+            # Out of place: y (and Σy, Σy² from it) stays as autograd saved it.
+            yf = torch.addcmul(shift[:, None, None], y.to(torch.float32), scale[:, None, None])
+            return F.relu(yf.to(self.dtype))
 
 
 class AdvocGenerator(nn.Module):
@@ -303,12 +313,13 @@ class AdvocGenerator(nn.Module):
             # product maps lane q·f + c to lane q·p + k with the shared
             # weights, and flattening (w, q, k) is the bin axis.
             f = x.shape[-1] // 2
-            wh = self.head.weight[:, :, 0, 0].T  # (f, p)
-            wblk = wh.new_zeros((2 * f, 2 * p))
-            wblk[:f, :p] = wh
-            wblk[f:, p:] = wh
-            delta = (x @ wblk.to(dt) + self.head.bias.repeat(2).to(dt)).to(torch.float32)
-            delta = delta.reshape(b, t, n_bins)
+            with profiling.span("conv"):
+                wh = self.head.weight[:, :, 0, 0].T  # (f, p)
+                wblk = wh.new_zeros((2 * f, 2 * p))
+                wblk[:f, :p] = wh
+                wblk[f:, p:] = wh
+                delta = x @ wblk.to(dt) + self.head.bias.repeat(2).to(dt)
+            delta = delta.to(torch.float32).reshape(b, t, n_bins)
         else:
             delta = conv_same(x, self.head, dt).to(torch.float32)  # (B, p, T, W)
             delta = delta.permute(0, 2, 3, 1).reshape(b, t, n_bins)

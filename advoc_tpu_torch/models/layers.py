@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advoc_tpu_torch.utils import profiling
+
 Tensor = torch.Tensor
 
 # The configs' ``dtype`` names.
@@ -89,11 +91,14 @@ def _conv(fn, x: Tensor, layer: nn.Module, dtype: torch.dtype, **kw) -> Tensor:
     float32 on the rounded operands, rounded once (a bf16 convolution that
     accumulates in float32, as cuDNN's does): torch 2.13's oneDNN bf16
     convolutions on the CPU return wrong values at some shapes (k24/s4 with
-    4 or 8 input channels, k4/s4 with 16; measured)."""
+    4 or 8 input channels, k4/s4 with 16; measured). Under a profiler the
+    casts and the convolution are the range ``advoc.conv``
+    (:func:`~advoc_tpu_torch.utils.profiling.span`)."""
     args = (x, layer.weight, layer.bias)
-    if x.device.type == "cpu" and dtype != torch.float32:
-        return fn(*(a.to(dtype).to(torch.float32) for a in args), **kw).to(dtype)
-    return fn(*(a.to(dtype) for a in args), **kw)
+    with profiling.span("conv"):
+        if x.device.type == "cpu" and dtype != torch.float32:
+            return fn(*(a.to(dtype).to(torch.float32) for a in args), **kw).to(dtype)
+        return fn(*(a.to(dtype) for a in args), **kw)
 
 
 def conv_same(x: Tensor, conv: nn.Conv1d | nn.Conv2d, dtype: torch.dtype) -> Tensor:

@@ -685,3 +685,27 @@ def test_each_kernel_launches_on_its_tensors_card(second_card):
     want = tpu.packed_up_plain(x, wt, bias, f=40, tm=8).float()
     torch.testing.assert_close(y, want, rtol=0, atol=1e-2 * float(want.abs().max()))
     assert torch.cuda.current_device() == 0
+
+
+def test_spans_time_the_card(dev):
+    """Under a profiler on the card every range of a Vocoder call holds the
+    kernels it launched: each child's time within its parent's, and the
+    U-Net's convolutions and normalisations within the U-Net's."""
+    from advoc_tpu_torch.utils import profiling
+
+    g = AdvocGenerator(AdvocConfig(width=16))
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    voc = Vocoder(g, device=dev)
+    mel = torch.rand(4, 512, 80, device=dev)
+    voc(mel)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            voc(mel)
+        torch.cuda.synchronize()
+    ms = profiling.device_ms(prof.profiler.kineto_results.events())
+    assert ms and all(v > 0 for v in ms.values()), ms
+    assert ms["advoc.conv"] + ms["advoc.norm"] <= ms["advoc.unet"] <= ms["advoc.windows"]
+    parts = sum(ms["advoc." + n] for n in ("estimate", "windows", "project", "gl"))
+    assert parts <= ms["advoc.vocode"] * (1 + 1e-6)

@@ -174,6 +174,19 @@ class TestKernelArtifacts:
         torch.testing.assert_close(ExportedVocoder(tmp_path, device="cpu")(mel), voc(mel),
                                    rtol=0, atol=0)
 
+    def test_profiler_records_nothing_in_the_graph(self, tmp_path, tiny_voc):
+        """Exported under a profiler, the program's spans stay out of the
+        graph and out of the profiler's trace while traced: only the eager
+        call that builds the constants first records them, once each."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            export_vocoder(tiny_voc, [(1, 128)], tmp_path)
+        program = torch.export.load(tmp_path / "voc_b1_t128.pt2")
+        targets = [str(n.target) for n in program.graph_module.graph.nodes
+                   if n.op == "call_function"]
+        assert targets and not [t for t in targets if "profiler" in t or "record" in t]
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+        assert [names.count(n) for n in ("advoc.estimate", "advoc.unet", "advoc.gl")] == [1, 1, 1]
+
     def test_xla_artifact_records_no_kernel(self, exported):
         program = torch.export.load(exported / "voc_b4_t128.pt2")
         assert registered.recorded(program.graph_module) == []

@@ -13,7 +13,6 @@ import torch
 
 import advoc_tpu_torch
 from advoc_tpu.data import audioio as jaudio
-from advoc_tpu.utils import profiling as jprof
 from advoc_tpu.utils import roofline as jroof
 from advoc_tpu_torch.data import audioio, native
 from advoc_tpu_torch.utils import profiling, roofline
@@ -31,18 +30,177 @@ class TestProfiling:
         best, out = profiling.timed_call(lambda x: x * 2, torch.ones(4), trials=2)
         assert best > 0 and torch.equal(out, torch.full((4,), 2.0))
 
-    def test_step_profiler_matches_jax(self, monkeypatch):
-        clock = iter([0.0, 0.5, 1.5, 1.75, 0.0, 0.5, 1.5, 1.75])
-        monkeypatch.setattr("time.perf_counter", lambda: next(clock))
-        summaries = []
-        for cls in (profiling.StepProfiler, jprof.StepProfiler):
-            p = cls(window=2)
-            assert p.steps_per_sec is None and p.summary() == {}
-            for _ in range(4):
-                p.tick()
-            summaries.append(p.summary())
-        assert summaries[0] == summaries[1]
-        assert summaries[0]["step_time_max_s"] == 1.0
+
+class TestSpans:
+    """The program's spans (``profiling.span``) and the card's time in them
+    (``profiling.device_ms``)."""
+
+    @staticmethod
+    def _ranges(prof) -> list:
+        """(name, parent's name) of every ``advoc.`` range the profiler
+        recorded, in the order they opened."""
+        return [(e.name, e.cpu_parent.name if e.cpu_parent else None)
+                for e in prof.events() if e.name.startswith(profiling.PREFIX)]
+
+    @staticmethod
+    def _counting(monkeypatch) -> list:
+        calls = []
+        rf = profiling._range  # the record_function range a span opens
+        monkeypatch.setattr(profiling, "_range", lambda *a: calls.append(a) or rf(*a))
+        return calls
+
+    def test_off_without_a_profiler(self, monkeypatch):
+        calls = self._counting(monkeypatch)
+        with profiling.span("vocode"):
+            with profiling.span("conv"):
+                torch.ones(4) + 1
+        assert calls == []
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with profiling.span("conv"):
+                pass
+        assert calls == [("advoc.conv",)] and self._ranges(prof) == [("advoc.conv", None)]
+
+    def test_off_while_traced(self, monkeypatch):
+        """Traced (``torch.export``), a span is off even under a profiler,
+        and the trace is not asked whether one records."""
+        calls = self._counting(monkeypatch)
+        monkeypatch.setattr(profiling._build, "traced", lambda: True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            monkeypatch.setattr(torch.autograd, "_profiler_enabled", lambda: 1 / 0)
+            with profiling.span("conv"):
+                pass
+            monkeypatch.undo()
+        assert calls == [] and self._ranges(prof) == []
+
+    def test_names_and_parents(self):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for _ in range(2):
+                with profiling.span("vocode"):
+                    with profiling.span("windows"):
+                        with profiling.span("unet"):
+                            torch.ones(8) + 1
+            with profiling.span("conv"):
+                pass
+        want = [("advoc.vocode", None), ("advoc.windows", "advoc.vocode"),
+                ("advoc.unet", "advoc.windows")]
+        assert self._ranges(prof) == want * 2 + [("advoc.conv", None)]
+
+    def test_other_threads_are_off(self, monkeypatch):
+        """``torch.profiler`` records the thread that started it: a span on
+        another thread is off, and the ranges nest on their own thread."""
+        import threading
+
+        calls = self._counting(monkeypatch)
+
+        def work():
+            with profiling.span("gl"):
+                torch.ones(4) + 1
+
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with profiling.span("vocode"):
+                t = threading.Thread(target=work)
+                t.start()
+                t.join()
+                with profiling.span("gl"):
+                    pass
+        assert calls == [("advoc.vocode",), ("advoc.gl",)]
+        assert self._ranges(prof) == [("advoc.vocode", None), ("advoc.gl", "advoc.vocode")]
+
+
+class _Event:
+    """A profiler event as :func:`profiling.device_ms` reads it (ns)."""
+
+    def __init__(self, name, start, dur=0, cuda=False, corr=0, linked=0, annotation=False):
+        self._v = (name, start, dur, cuda, corr, linked, annotation)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def duration_ns(self):
+        return self._v[2]
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA if self._v[3] else torch.autograd.DeviceType.CPU
+
+    def correlation_id(self):
+        return self._v[4]
+
+    def linked_correlation_id(self):
+        return self._v[5]
+
+    def is_user_annotation(self):
+        return self._v[6]
+
+
+def _call(t0: int, ms: dict, corr: int) -> list:
+    """One Vocoder call's events from ``t0`` µs: the ranges vocode ⊃
+    {estimate, windows ⊃ unet ⊃ {conv, norm}, gl} on the host, a launch in
+    each range's own time (ids from ``corr``), its kernel taking ``ms[name]``
+    ms on the card, in reverse order (the card runs later than the host)."""
+    us = 1000
+    ranges = {"vocode": (0, 100), "estimate": (2, 8), "windows": (10, 60), "unet": (12, 55),
+              "conv": (14, 20), "norm": (25, 40), "gl": (70, 90)}
+    launch_at = {"vocode": 95, "estimate": 2, "windows": 58, "unet": 50, "conv": 15,
+                 "norm": 39, "gl": 80}
+    out = [_Event("advoc." + n, (t0 + s) * us, (e - s) * us) for n, (s, e) in ranges.items()]
+    for i, (n, t) in enumerate(launch_at.items()):
+        out.append(_Event("cudaLaunchKernel", (t0 + t) * us, 2 * us, corr=corr + i))
+        kernel = _Event("k", (t0 + 1000 - t) * us, int(ms[n] * 1e6), cuda=True, corr=corr + i)
+        out.append(kernel)
+    out.append(_Event("advoc.conv", (t0 + 14) * us, 6 * us, cuda=True, annotation=True))
+    return out
+
+
+class TestDeviceMs:
+    """``profiling.device_ms`` on made-up profiler events."""
+
+    MS = [{"vocode": 1.0, "estimate": 0.5, "windows": 0.25, "unet": 2.0, "conv": 3.0,
+           "norm": 6.0, "gl": 4.0},
+          {"vocode": 3.0, "estimate": 1.5, "windows": 0.75, "unet": 4.0, "conv": 5.0,
+           "norm": 2.0, "gl": 8.0}]
+
+    def test_each_range_holds_the_kernels_launched_in_it(self):
+        events = _call(0, self.MS[0], 1) + _call(5000, self.MS[1], 101)
+        got = profiling.device_ms(events)
+        mean = {n: (a + b) / 2 for (n, a), b in zip(self.MS[0].items(), self.MS[1].values())}
+        want = {"advoc.conv": mean["conv"], "advoc.norm": mean["norm"],
+                "advoc.unet": mean["unet"] + mean["conv"] + mean["norm"],
+                "advoc.estimate": mean["estimate"], "advoc.gl": mean["gl"]}
+        want["advoc.windows"] = want["advoc.unet"] + mean["windows"]
+        want["advoc.vocode"] = (want["advoc.windows"] + mean["vocode"] + mean["estimate"]
+                                + mean["gl"])
+        assert got.keys() == want.keys()
+        for n in want:
+            assert got[n] == pytest.approx(want[n]), n
+
+    @pytest.mark.parametrize("case", ["outside", "linked", "no_call", "unlinked"])
+    def test_what_counts(self, case):
+        """Kernels launched outside every call do not count; a kernel found
+        by its linked id does; without a call there is nothing; a kernel
+        with no launch in the trace counts nowhere."""
+        ms = self.MS[0]
+        events = _call(0, ms, 1)
+        base = profiling.device_ms(events)
+        if case == "outside":  # a warm-up's convolution before the window
+            events += [_Event("advoc.conv", 200_000, 10_000),
+                       _Event("cudaLaunchKernel", 205_000, corr=50),
+                       _Event("k", 300_000, 7_000_000, cuda=True, corr=50)]
+            assert profiling.device_ms(events) == base
+        elif case == "linked":
+            events += [_Event("cudaMemcpyAsync", 16_000, corr=60),
+                       _Event("Memcpy", 400_000, 1_000_000, cuda=True, corr=0, linked=60)]
+            got = profiling.device_ms(events)
+            assert got["advoc.conv"] == pytest.approx(base["advoc.conv"] + 1.0)
+            assert got["advoc.norm"] == base["advoc.norm"]
+        elif case == "no_call":
+            assert profiling.device_ms([e for e in events if e.name() != "advoc.vocode"]) == {}
+            assert profiling.device_ms([]) == {}
+        else:
+            events.append(_Event("k", 500_000, 9_000_000, cuda=True, corr=999))
+            assert profiling.device_ms(events) == base
 
 
 class TestRoofline:

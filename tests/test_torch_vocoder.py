@@ -27,7 +27,9 @@ from advoc_tpu_torch.ops.reference import AudioParams
 from advoc_tpu_torch.infer import StreamingVocoder, Vocoder
 from advoc_tpu_torch.infer.vocoder import chunked_generator_apply
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator, flax_to_torch_state_dict
+from advoc_tpu_torch.models.layers import GroupNorm
 from advoc_tpu_torch.ops import spectral as tsp
+from advoc_tpu_torch.utils import profiling
 
 HOP = P.hop_length
 # Two G-L iterations from a zero phase: bins where the rebuilt |u| ≈ 0 have an
@@ -258,3 +260,62 @@ class TestVocoder:
                                 device="cpu").latency_frames == 2 + 4
         with pytest.raises(ValueError, match="mel_context"):
             StreamingVocoder(mel_context=4, device="cpu")
+
+
+class TestSpans:
+    """The Vocoder's spans (``utils.profiling``) on a small CPU Vocoder:
+    ranges under a profiler, at the stage seams and in the U-Net, and
+    nothing without one."""
+
+    @staticmethod
+    def _voc(**cfg):
+        g = AdvocGenerator(AdvocConfig(n_frames=64, width=8, depth=4, dtype="float32", **cfg))
+        g.reset_parameters(torch.Generator().manual_seed(0))
+        return g, Vocoder(g, chunk_frames=256, overlap_frames=32, gl_iters=2, device="cpu")
+
+    @staticmethod
+    def _under(e, name: str) -> bool:
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            if e.name == name:
+                return True
+        return False
+
+    @pytest.mark.parametrize("cfg", [{}, {"packed_tail": True}], ids=["default", "packed_tail"])
+    def test_stages_and_unet_layers(self, cfg):
+        g, voc = self._voc(**cfg)
+        calls = 2
+        mel = torch.rand(2, 500, P.n_mels)  # bucketed to 512: three windows
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for _ in range(calls):
+                voc(mel)
+        events = prof.events()
+        vocodes = [e for e in events if e.name == "advoc.vocode"]
+        assert len(vocodes) == calls and all(v.cpu_parent is None for v in vocodes)
+        n_conv = sum(isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))
+                     for m in g.modules())
+        n_norm = sum(isinstance(m, GroupNorm) for m in g.modules())
+        for v in vocodes:
+            kids = [c for c in v.cpu_children if c.name.startswith(profiling.PREFIX)]
+            assert [c.name for c in kids] == ["advoc.estimate", "advoc.windows",
+                                              "advoc.project", "advoc.gl"]
+            unet = [c for c in kids[1].cpu_children if c.name.startswith(profiling.PREFIX)]
+            assert [c.name for c in unet] == ["advoc.unet"]
+        for name, n in (("advoc.conv", n_conv), ("advoc.norm", n_norm)):
+            mine = [e for e in events if e.name == name]
+            assert len(mine) == n * calls
+            assert all(e.cpu_parent.name == "advoc.unet" for e in mine)
+        assert all(self._under(e, "advoc.vocode") for e in events
+                   if e.name.startswith(profiling.PREFIX) and e.name != "advoc.vocode")
+        times = profiling.device_ms(prof.profiler.kineto_results.events())
+        assert times == dict.fromkeys(sorted(
+            "advoc." + n for n in ("vocode", "estimate", "windows", "unet", "conv", "norm",
+                                   "project", "gl")), 0.0)  # no card: no kernel
+
+    def test_nothing_without_a_profiler(self, monkeypatch):
+        calls = []
+        rf = profiling._range  # the record_function range a span opens
+        monkeypatch.setattr(profiling, "_range", lambda *a: calls.append(a) or rf(*a))
+        _, voc = self._voc()
+        voc(torch.rand(1, 256, P.n_mels))
+        assert calls == []
