@@ -17,16 +17,20 @@ Portability (asserted in ``tests/test_torch_export.py``):
   loading it elsewhere raises.
 * The port's hand-written kernels are recorded as the registered operators
   of :mod:`advoc_tpu_torch.ops.kernels.registered` (``advoc::griffin_lim``
-  under ``phase_impl="auto"`` on the card or ``"kernel"``, and
-  ``advoc::packed_up`` under ``packed_tail`` on the card). Such an artifact
-  needs that module at load time and runs only where the operator has an
-  implementation, so :func:`export_vocoder` refuses it unless
-  ``allow_custom_calls=True``, as the JAX package refuses a Mosaic custom
-  call. A ``phase_impl="xla"`` artifact is plain aten.
+  under ``phase_impl="auto"`` on the card or ``"kernel"``,
+  ``advoc::packed_up`` under ``packed_tail`` on the card, and
+  ``advoc::group_norm_act`` at each normalised U-Net level on the card).
+  Such an artifact needs that module at load time and runs only where the
+  operator has an implementation, so :func:`export_vocoder` refuses it
+  unless ``allow_custom_calls=True``, as the JAX package refuses a Mosaic
+  custom call. Without ``allow_custom_calls`` the U-Net's levels are traced
+  as the plain GroupNorm's aten ops, so a ``phase_impl="xla"`` artifact is
+  plain aten, on the card as on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 from typing import Sequence
@@ -70,7 +74,7 @@ def export_vocoder(
     runs where it was traced). An artifact that records a port kernel
     (module docstring) raises unless ``allow_custom_calls``.
     """
-    from advoc_tpu_torch.ops.kernels import registered
+    from advoc_tpu_torch.ops.kernels import group_norm, registered
 
     if voc.mesh is not None:
         raise ValueError("export a Vocoder without a mesh (one device per artifact)")
@@ -93,7 +97,9 @@ def export_vocoder(
         mel = torch.zeros((batch, t_frames, p.n_mels), device=voc.device)
         with torch.no_grad():
             fused(mel)  # builds the device constants, which the trace then records as constants
-            program = torch.export.export(fused, (mel,))
+            with (contextlib.nullcontext() if allow_custom_calls
+                  else group_norm.plain_when_traced()):
+                program = torch.export.export(fused, (mel,))
         kernels = registered.recorded(program.graph_module)
         if kernels and not allow_custom_calls:
             raise ValueError(

@@ -32,7 +32,11 @@ returns ``mean(x)`` in float32 right after the named stage (``down{i}``,
 
 Under a profiler every convolution (with its casts) is the range
 ``advoc.conv`` and every normalisation with its activation ``advoc.norm``
-(:func:`~advoc_tpu_torch.utils.profiling.span`).
+(:func:`~advoc_tpu_torch.utils.profiling.span`). Each ``_Down`` and ``_Up``
+level normalises and activates through
+:func:`~advoc_tpu_torch.models.layers.group_norm_act`: on the card without
+autograd one CUDA kernel pair in the convolution's layout, else the plain
+``GroupNorm`` and activation.
 
 ``AdvocConfig(packed_tail=True)`` computes the finest decoder level and the
 1×1 head in the packed layout (B, T, W, 2f) of the JAX package
@@ -60,6 +64,7 @@ from advoc_tpu_torch.models.layers import (
     conv_same,
     conv_transpose_same,
     flax_init,
+    group_norm_act,
 )
 from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
@@ -110,7 +115,7 @@ class _Down(nn.Module):
         if self.norm is None:
             return F.leaky_relu(x, 0.2)
         with profiling.span("norm"):
-            return F.leaky_relu(self.norm(x), 0.2)
+            return group_norm_act(x, self.norm, "leaky_relu")
 
 
 class _Up(nn.Module):
@@ -157,7 +162,7 @@ class _Up(nn.Module):
             x = conv_same(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3),
                           self.conv, dt)
         with profiling.span("norm"):
-            return F.relu(self.norm(x))
+            return group_norm_act(x, self.norm, "relu")
 
 
 class _PackedTailUp(nn.Module):

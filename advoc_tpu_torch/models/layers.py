@@ -1,7 +1,9 @@
 """Layers the port's model families share: flax's semantics in PyTorch.
 
 * :class:`GroupNorm`: flax ``GroupNorm`` (eps 1e-6, f32 statistics with
-  var = E[x²] − E[x]², output in a chosen dtype).
+  var = E[x²] − E[x]², output in a chosen dtype); :func:`group_norm_act`:
+  a GroupNorm with its activation, on the card without autograd the fused
+  kernel (:mod:`advoc_tpu_torch.ops.kernels.group_norm`).
 * :func:`flax_init`: flax's default initializers (lecun_normal kernels,
   zero biases, GroupNorm scale 1 and bias 0).
 * :func:`conv_same`: flax ``Conv(padding="SAME", dtype=...)``, 1-D or 2-D,
@@ -21,6 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advoc_tpu_torch.ops.kernels.group_norm import (
+    activate,
+    group_norm_act_kernel,
+    group_norm_apply_plain,
+    group_norm_stats_plain,
+)
 from advoc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
@@ -42,17 +50,30 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: Tensor) -> Tensor:
-        b, c = x.shape[:2]
-        xf = x.to(torch.float32)
-        g = xf.reshape(b, self.groups, -1)
-        mean = g.mean(-1)
-        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
-        shape = (b, c) + (1,) * (x.ndim - 2)
-        mean = mean.repeat_interleave(c // self.groups, 1).reshape(shape)
-        inv = torch.rsqrt(var + 1e-6).repeat_interleave(c // self.groups, 1).reshape(shape)
-        w = self.weight.reshape((1, c) + (1,) * (x.ndim - 2))
-        bias = self.bias.reshape(w.shape)
-        return ((xf - mean) * (inv * w) + bias).to(self.dtype)
+        return group_norm_apply_plain(x, *group_norm_stats_plain(x, self.groups), self.weight,
+                                      self.bias, None, self.dtype)
+
+
+def group_norm_act(x: Tensor, norm: GroupNorm, act: str) -> Tensor:
+    """``act`` (``"leaky_relu"`` at slope 0.2, or ``"relu"``) of ``norm(x)``.
+
+    A CUDA ``x`` that autograd would not record (grad off, or none of x,
+    weight, bias requiring it: the Vocoder, streaming, export, a train
+    step's frozen generator) goes to the fused kernel,
+    :func:`~advoc_tpu_torch.ops.kernels.group_norm.group_norm_act_kernel`
+    (the registered operator while traced), which raises on what it does
+    not take; so does a norm whose output dtype is not x's. A CPU tensor,
+    and a CUDA one under autograd (the kernel has no backward, so a
+    training step's generator update), run ``norm`` and the activation.
+    """
+    params = (norm.weight, norm.bias)
+    if x.is_cuda and not (torch.is_grad_enabled()
+                          and any(t.requires_grad for t in (x, *params))):
+        if x.dtype != norm.dtype:
+            raise ValueError(f"group_norm_act: the kernel writes x's dtype {x.dtype}, the norm "
+                             f"{norm.dtype}")
+        return group_norm_act_kernel(x, *params, norm.groups, act)
+    return activate(norm(x), act)
 
 
 def flax_init(module: nn.Module, generator: torch.Generator) -> None:

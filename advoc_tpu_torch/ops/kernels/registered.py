@@ -5,13 +5,16 @@ also an operator of the ``advoc`` namespace (``torch.library.custom_op``):
 
 * ``advoc::griffin_lim`` (B1/B2, :mod:`.griffin_lim`),
 * ``advoc::fused_melspec`` (B3, :mod:`.featurizer`),
-* ``advoc::packed_up`` (B4, :mod:`.packed_up`).
+* ``advoc::packed_up`` (B4, :mod:`.packed_up`),
+* ``advoc::group_norm_act`` (the U-Net's GroupNorm + activation,
+  :mod:`.group_norm`).
 
 Each operator's CUDA implementation launches the kernel (and counts the
 launch, as the eager wrapper does), its CPU implementation is the plain
-version, and its fake implementation gives the output shapes and dtypes for
-tracing. The wrappers (``griffin_lim_kernel``, ``fused_melspec_kernel``,
-``packed_up_kernel``) call the operator only while they are traced
+version, and its fake implementation gives the output shapes and dtypes (and
+``group_norm_act``'s strides, the input's layout) for tracing. The wrappers
+(``griffin_lim_kernel``, ``fused_melspec_kernel``, ``packed_up_kernel``,
+``group_norm_act_kernel``) call the operator only while they are traced
 (:func:`~advoc_tpu_torch.ops.kernels._build.traced`: ``torch.export``,
 ``torch.compile``); eager calls launch directly, as before. An exported program that records one of these
 operators needs this module imported before ``torch.export.load``, and runs
@@ -25,13 +28,13 @@ from typing import Optional
 
 import torch
 
-from advoc_tpu_torch.ops.kernels import featurizer, griffin_lim, packed_up
+from advoc_tpu_torch.ops.kernels import featurizer, griffin_lim, group_norm, packed_up
 from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
 
 Tensor = torch.Tensor
 
 NAMESPACE = "advoc"
-OPS = ("griffin_lim", "fused_melspec", "packed_up")
+OPS = ("griffin_lim", "fused_melspec", "packed_up", "group_norm_act")
 
 
 def params_list(params: AudioParams) -> list[float]:
@@ -122,6 +125,25 @@ def _(x, wt, bias, f, tm, with_stats):
 
 def _no_stats(x: Tensor) -> tuple[Tensor, Tensor]:
     return tuple(x.new_empty((x.shape[0], 0), dtype=torch.float32) for _ in range(2))
+
+
+# -- advoc::group_norm_act ---------------------------------------------------
+
+@torch.library.custom_op("advoc::group_norm_act", mutates_args=(), device_types="cuda")
+def group_norm_act_op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> Tensor:
+    """act(GroupNorm(x)) in x's layout (channels-last or contiguous NCHW)."""
+    return group_norm._launch(x, weight, bias, groups, act)[0]
+
+
+@group_norm_act_op.register_kernel("cpu")
+def _(x, weight, bias, groups, act):
+    # The plain version's elementwise ops keep x's layout.
+    return group_norm.group_norm_act_plain(x, weight, bias, groups, act)
+
+
+@group_norm_act_op.register_fake
+def _(x, weight, bias, groups, act):
+    return torch.empty_like(x)
 
 
 def recorded(graph_module) -> list[str]:

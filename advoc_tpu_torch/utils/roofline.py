@@ -20,8 +20,9 @@ are not meaningful. Caveats, where they bite:
   their ctypes launches) are invisible to it: count their operations by
   hand from the shapes, as the JAX package does for a Pallas call (the
   same algorithm, the same required operations). :func:`gl_flops`,
-  :func:`gl_bytes`, :func:`feat_work` and :func:`packed_up_work` are those
-  counts for the four kernels, and :func:`bound` turns a count into the
+  :func:`gl_bytes`, :func:`feat_work`, :func:`packed_up_work` and
+  :func:`group_norm_bytes` (over :func:`group_norm_levels`) are those
+  counts for the five kernels, and :func:`bound` turns a count into the
   least time the card could take; ``chip_smoke.py`` and
   ``scripts/roofline_torch.py`` both read them here.
 * Its bytes are the floor, each input tensor read once and each output
@@ -192,6 +193,37 @@ def packed_up_work(b: int, h: int, w: int, cin: int, f: int) -> tuple[float, flo
     out = b * 2 * h * w * 2 * f
     return (float(out * 4 * cin * 2),
             float(2 * b * h * w * cin + 4 * (16 * cin * f + f) + 2 * out + 8 * b * 2 * f))
+
+
+def group_norm_levels(cfg, b: int) -> list[tuple[str, str, tuple[int, int, int, int]]]:
+    """(name, activation, (B, C, H, W)) of each level of ``cfg``'s U-Net (an
+    ``AdvocConfig``) that GroupNorm + activation normalises, on ``b``
+    windows of ``cfg.n_frames`` frames: ``down1`` … (LeakyReLU), then
+    ``up0`` … (ReLU), as ``AdvocGenerator`` builds them."""
+    feats = [min(cfg.width * 2**i, cfg.width * 8) for i in range(cfg.depth)]
+    h, w = cfg.n_frames, (cfg.n_freq - 1) // cfg.freq_pack
+    levels = []
+    for i, f in enumerate(feats):
+        h, w = h // 2, w // 2
+        if i:
+            levels.append((f"down{i}", "leaky_relu", (b, f, h, w)))
+    n_ups = cfg.depth - 1 if cfg.fast_head else cfg.depth
+    for i, f in enumerate(list(reversed(feats))[:n_ups]):
+        h, w = 2 * h, 2 * w
+        levels.append((f"up{i}", "relu", (b, f, h, w)))
+    return levels
+
+
+def group_norm_bytes(shape: tuple[int, ...], itemsize: int = 2, reads: int = 1) -> float:
+    """Bytes of one GroupNorm + activation call on a ``shape`` (B, C, H, W)
+    of ``itemsize``-byte elements (bf16 by default): each element read
+    ``reads`` times and written once, and the f32 weight and bias read
+    once. ``reads=1`` is the floor; ``reads=2`` two passes over a level
+    larger than L2. No tensor-core operations."""
+    n = 1
+    for d in shape:
+        n *= d
+    return float((reads + 1) * itemsize * n + 8 * shape[1])
 
 
 def bound(flops: float, nbytes: float,

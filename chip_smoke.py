@@ -8,7 +8,9 @@ Builds every CUDA kernel of the port from ``advoc_tpu_torch/csrc`` (one
 PyTorch version on the card: fast G-L in both precisions (the 3xTF32
 kernels at "highest", the bf16 tensor-core kernel at "default", JAX's
 split_synth), the
-fused featurizer and the packed-tail transpose-conv. Then it drives two
+fused featurizer, the packed-tail transpose-conv and the U-Net's GroupNorm +
+activation (:func:`group_norm`, at the full-width generator's 11 levels on
+128 windows). Then it drives two
 paths at the full default width (random weights from a seed), each with the
 kernel counts (one per CUDA library) set to 0 just before it and read just
 after:
@@ -76,7 +78,8 @@ after:
   each held to its plain version at (128, 256), (8, 64) and (1, 1024)
   frames, with its mel L1 gap to the fp32 plain version (gated at 2e-3 for
   split) and its time; the full-width Vocoder exported at (8, 256) by
-  ``infer.export`` (the default, the packed tail and ``phase_impl="xla"``)
+  ``infer.export`` (the default and the packed tail, which record the
+  GroupNorm operator on the card, and ``phase_impl="xla"``, plain aten)
   and served by a child process that imports no model code, against the
   live call; ``vocoder_eval`` and ``stress_panel`` (through the featurizer
   kernel) on the card against the CPU port; the generator's other decoder
@@ -137,6 +140,23 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def norm_levels(cfg) -> int:
+    """The normalised U-Net levels of an ``AdvocConfig``'s generator, each
+    one GroupNorm kernel pair a call on the card without autograd."""
+    from advoc_tpu_torch.utils.roofline import group_norm_levels
+
+    return len(group_norm_levels(cfg, 1))
+
+
+def norm_pairs(n: int, levels: int, calls: int | None = None) -> bool:
+    """Whether ``n`` GroupNorm kernel launches are the pair at each of a
+    generator's ``levels`` normalised levels, ``calls`` times (a positive
+    number of times where None)."""
+    if calls is not None:
+        return n == 2 * levels * calls
+    return n > 0 and n % (2 * levels) == 0
+
+
 def cuda_ms(fn, reps: int = 3) -> float:
     """Mean time of ``fn`` on the card after one warmup call (CUDA events)."""
     fn()
@@ -171,6 +191,100 @@ def device_trace(fn) -> tuple[float, dict[str, tuple[float, int]]]:
             ms, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (ms + ev.device_time / 1e3, n + 1)
     return start.elapsed_time(end), by_name
+
+
+def group_norm(dev) -> dict:
+    """2d. GroupNorm + activation against its plain version at each of the
+    full-width U-Net's 11 normalised levels on 128 windows (chunks-b128's
+    shapes), channels-last as the convolutions return them: the kernel's
+    (mean, inv) within 1e-5 relative of the plain ones, its output bit-equal
+    to the plain formula on its own statistics and within one bf16 ulp of
+    the plain version (two on LeakyReLU's negative side) plus 1e-5 (the
+    statistics' last bits, summed in another order, are many ulps of a value
+    near 0), with the largest ulps where the output is at least 2^-4 and the
+    largest difference below. Times each level:
+    the kernel, the plain version and a yardstick the port never calls,
+    ``F.group_norm`` (bf16 weights) followed by the activation; the bound is
+    the floor, one read and one write of the activation at 3.35 TB/s, and
+    ``two_pass_ms`` two reads and one write. Times are the
+    card's kernel time a call from a profiler over 5 calls (a small level's
+    call is shorter than its host's), and the kernel's wall time a call by
+    CUDA events."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_ms(fn, reps: int = 5) -> float:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(ev.device_time for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+    from advoc_tpu_torch.models.advoc import AdvocConfig
+    from advoc_tpu_torch.ops.kernels import group_norm as gn
+    from advoc_tpu_torch.utils.roofline import bound, group_norm_bytes, group_norm_levels
+
+    rows = {}
+    for name, act, shape in group_norm_levels(AdvocConfig(), 128):
+        g = torch.Generator(device=dev).manual_seed(shape[1] + shape[2])
+        c = shape[1]
+        x = (torch.randn(shape, generator=g, device=dev) + 0.3).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        w = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
+        b = 0.1 * torch.randn(c, generator=g, device=dev)
+        y, scratch = gn._launch(x, w, b, 8, act)
+        stats = scratch[: 2 * 128 * 8].view(128, 8, 2)
+        mean, inv = gn.group_norm_stats_plain(x, 8)
+        stat_rel = max(float(((stats[..., 0] - mean).abs() / mean.abs().clamp(min=1e-6)).max()),
+                       float(((stats[..., 1] - inv).abs() / inv).max()))
+        same = torch.equal(y, gn.group_norm_apply_plain(x, stats[..., 0], stats[..., 1], w, b,
+                                                        act))
+        want = gn.group_norm_act_plain(x, w, b, 8, act).float()
+        _, e = torch.frexp(want)
+        ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want), e - 8))
+        k = torch.where(want < 0, 2.0 if act == "leaky_relu" else 1.0, 1.0)
+        diff = (y.float() - want).abs()
+        excess = float((diff - (k * ulp + 1e-5)).max())
+        big = want.abs() >= 2**-4
+        ulps_big = float((diff[big] / ulp[big]).max())
+        small_abs = float(diff[~big].max())
+        require(same and stat_rel <= 1e-5 and excess <= 0 and y.stride() == x.stride(),
+                f"group_norm {name} {tuple(shape)}: equal on its statistics {same}, statistics "
+                f"rel {stat_rel}, beyond k ulps + 1e-5 by {excess}, strides {y.stride()}")
+        del y, scratch, stats, mean, inv, want, e, ulp, k, diff, big
+        actf = (lambda t: F.leaky_relu(t, 0.2)) if act == "leaky_relu" else F.relu
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        row = {
+            "shape": list(shape), "stat_rel": stat_rel, "max_ulps_above": ulps_big,
+            "max_abs_below": small_abs,
+            "ms": kernel_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act)),  # noqa: B023
+            "wall_ms": cuda_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act), reps=10),  # noqa: B023
+            "plain_ms": kernel_ms(lambda: gn.group_norm_act_plain(x, w, b, 8, act)),  # noqa: B023
+            "library_ms": kernel_ms(lambda: actf(F.group_norm(x, 8, wb, bb, eps=1e-6))),  # noqa: B023
+            "bound_ms": bound(0.0, group_norm_bytes(shape))[0],
+            "two_pass_ms": bound(0.0, group_norm_bytes(shape, reads=2))[0],
+        }
+        rows[name] = row
+        print(f"group_norm {name} {tuple(shape)} {act}: kernel {row['ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.1%} of its {row['bound_ms']:.4f} ms bound, "
+              f"two passes {row['two_pass_ms']:.4f}; wall {row['wall_ms']:.4f}), plain "
+              f"{row['plain_ms']:.3f} ms, F.group_norm + act {row['library_ms']:.3f} ms; "
+              f"statistics rel {stat_rel:.1e}, ulps at |y| ≥ 2^-4 {ulps_big:g}, below "
+              f"{small_abs:.1e}")
+        del x
+    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "wall_ms", "plain_ms",
+                                                            "library_ms", "bound_ms",
+                                                            "two_pass_ms")}
+    print(f"group_norm 11 levels B=128: kernel {total['ms']:.3f} ms ({total['bound_ms']:.3f} ms "
+          f"bound, {total['bound_ms'] / total['ms']:.1%}; two passes {total['two_pass_ms']:.3f} "
+          f"ms, {total['two_pass_ms'] / total['ms']:.1%}; wall {total['wall_ms']:.3f}), plain "
+          f"{total['plain_ms']:.2f} ms, "
+          f"F.group_norm + act {total['library_ms']:.2f} ms; up5 kernel {rows['up5']['ms']:.3f} "
+          f"ms of {rows['up5']['bound_ms']:.3f}")
+    return {"levels": rows, **total}
 
 
 def serving(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
@@ -359,7 +473,11 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         require(l1_cli < 1.1 * l1_ref + 1e-3,
                 f"vocode_cli u{i}: mel L1 {l1_cli} vs matmul-scan Vocoder {l1_ref}")
     torch.cuda.synchronize()
-    require(not any(counts().values()), f"the matmul-scan reference launched {counts()}")
+    got = counts()
+    gn = got.pop("group_norm_act")
+    require(not any(got.values()) and norm_pairs(gn, norm_levels(gen.cfg), len(lengths)),
+            f"the matmul-scan reference launched {counts()}: no kernel but the GroupNorm pair at "
+            f"each level of its {len(lengths)} generator calls")
     out["cli_x_realtime"] = summary["audio_s"] / summary["seconds"]
     print(f"serving (d) vocode_cli 8 wavs ({sum(lengths) / SR:.1f} s of audio), --batch 8, full "
           f"width: launches {out['cli_launches']}; exact lengths; mel L1 (CLI, matmul-scan "
@@ -388,9 +506,15 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     out: dict = {}
     t_start = time.perf_counter()
 
-    def no_kernel(what: str) -> None:
+    def no_kernel(what: str, levels: int = 0, calls: int | None = None) -> None:
+        """No port kernel launched, but the GroupNorm pairs of a generator
+        of ``levels`` normalised levels where it runs one."""
         torch.cuda.synchronize()
-        require(not any(counts().values()), f"{what}: port kernels launched {counts()}")
+        got = counts()
+        gn = got.pop("group_norm_act")
+        require(not any(got.values()) and (norm_pairs(gn, levels, calls) if levels else gn == 0),
+                f"{what}: port kernels launched {counts()} (GroupNorm: {levels} levels, "
+                f"{calls} calls)")
 
     def traced(fn) -> tuple[int, float | None]:
         """Launches and busy share of one traced call (None: no device time)."""
@@ -446,7 +570,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     batch = mels(32, 256, seed=1)
     zero_counts()
     wav = voc_lws(batch)
-    no_kernel("Vocoder(phase_method='lws_exact')")
+    no_kernel("Vocoder(phase_method='lws_exact')", norm_levels(gen.cfg), 1)
     require(tuple(wav.shape) == (32, 256 * HOP) and bool(torch.isfinite(wav).all()),
             "lws_exact Vocoder output")
     l1, l1_gl = mel_l1(wav, batch), mel_l1(voc(batch), batch)
@@ -499,7 +623,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         sv = engine_sv()
         zero_counts()
         sig = np.concatenate([sv.push(c) for c in chunks] + [sv.flush()], axis=1)
-        no_kernel(f"StreamingVocoder {engine}")
+        no_kernel(f"StreamingVocoder {engine}", norm_levels(sgen.cfg))
         require(sig.dtype == np.int16
                 and sig.shape == (n_s, n_chunks * chunk * HOP + sv.flush_samples),
                 f"{engine} stream output {sig.dtype} {sig.shape}")
@@ -572,7 +696,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         res = serve_main(["--selftest", "16", "--pushes", "10", "--engine", "lws_block",
                           "--bundle", str(pathlib.Path(tmp) / "small"), "--n_slots", "16",
                           "--device", "cuda"])
-        no_kernel("server lws_block")
+        no_kernel("server lws_block", norm_levels(sgen.cfg))
     require(res["n_clients"] == 16 and res["engine"] == "lws_block" and res["ticks"] >= 10
             and res["p50_ms"] > 0, f"lws_block selftest result {res}")
     out["h_server"] = res
@@ -659,7 +783,10 @@ def training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
                                           "--data_placement", "hbm", "--max_steps", "24",
                                           "--ckpt_every", "24", "--log_every", "8", *common])
     torch.cuda.synchronize()
-    require(counts() == zeros, f"the train step runs no port kernel: {counts()}")
+    # The D update runs the frozen generator under no_grad: the GroupNorm pair
+    # at each level a step. The G update, under autograd, the plain GroupNorm.
+    require(counts() == {**zeros, "group_norm_act": 24 * 2 * norm_levels(cfg)},
+            f"the train step runs no port kernel but the D update's GroupNorm: {counts()}")
     require(step == 24 and gs.step == ds.step == 24 and "staged in device memory" in text,
             f"hbm run ended at step {step}")
     changed_and_finite(gs, init["g"], "G")
@@ -1147,8 +1274,9 @@ def parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi: str) -> dict
     torch.cuda.synchronize()
     out["vocoder_launches"] = counts()
     require(out["vocoder_launches"] == {"griffin_lim": 0, "griffin_lim_tc": 2 * (2 * 30 + 1),
-                                        "fused_melspec": 0, "packed_up": 0},
-            f"G-L kernel launches of the two-shard Vocoder: {out['vocoder_launches']}")
+                                        "fused_melspec": 0, "packed_up": 0,
+                                        "group_norm_act": 2 * 2 * norm_levels(gen.cfg)},
+            f"kernel launches of the two-shard Vocoder: {out['vocoder_launches']}")
     err = float((got - halves).abs().max())
     err_all = float((got - want).abs().max())
     l1_mesh, l1_one = mel_l1(got, batch), mel_l1(want, batch)
@@ -1280,6 +1408,7 @@ import json, pathlib, sys
 import numpy as np, torch
 from advoc_tpu_torch.infer.export import ExportedVocoder
 from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel
+from advoc_tpu_torch.ops.kernels.group_norm import group_norm_act_kernel
 from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel
 root = pathlib.Path(sys.argv[1])
 mels = torch.tensor(np.load(root / "mels.npy"), device="cuda")
@@ -1289,11 +1418,13 @@ for name in sys.argv[2:]:
     ev(mels)
     torch.cuda.synchronize()
     griffin_lim_kernel.launches = griffin_lim_kernel.tc_launches = packed_up_kernel.launches = 0
+    group_norm_act_kernel.launches = 0
     out = ev(mels)
     torch.cuda.synchronize()
     launches = {"griffin_lim": griffin_lim_kernel.launches,
                 "griffin_lim_tc": griffin_lim_kernel.tc_launches,
-                "packed_up": packed_up_kernel.launches}
+                "packed_up": packed_up_kernel.launches,
+                "group_norm_act": group_norm_act_kernel.launches}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(3):
@@ -1374,7 +1505,8 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
         torch.cuda.synchronize()
         row["launches"] = counts()
         require(row["launches"] == {"griffin_lim": 0, "griffin_lim_tc": 61, "fused_melspec": 0,
-                                    "packed_up": 0}, f"G-L {mode} launches {row['launches']}")
+                                    "packed_up": 0, "group_norm_act": 0},
+                f"G-L {mode} launches {row['launches']}")
         long_mag = shapes[(1, 1024)][1]
         row.update(
             ms=cuda_ms(lambda: griffin_lim_kernel(mag, 30, 0.99, loop_dtype=mode)),
@@ -1397,7 +1529,10 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
     # -- (l-b) AOT export of the full-width Vocoder at (8, 256) ------------------
     # Three artifacts of the AdvocConfig() generator (random weights from
     # seed 0): the default Vocoder (the tensor-core G-L as advoc::griffin_lim),
-    # the packed tail (advoc::packed_up too) and phase_impl="xla" (plain aten).
+    # the packed tail (advoc::packed_up too), each recording
+    # advoc::group_norm_act at its normalised levels (11, and 10 beside the
+    # packed tail's own norm), and phase_impl="xla" (plain aten: exported
+    # without allow_custom_calls, its levels traced as the plain GroupNorm).
     # A child process that imports no model code serves each on the same
     # mels: the same operators on the same weights, so bit-equal to the live
     # call is expected; held to mel L1 within 1e-4 of it and printed.
@@ -1426,16 +1561,17 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
         child = json.loads(line[0][len("EXPORT_CHILD "):])
         require(child["model_modules"] == [],
                 f"the export child imported model code: {child['model_modules']}")
-        want_launches = {"default": (61, 0), "packed_tail": (61, 1), "xla": (0, 0)}
+        want_launches = {"default": (61, 0, 22), "packed_tail": (61, 1, 20), "xla": (0, 0, 0)}
         for name, v in vocs.items():
             live = v(batch8)
             got = torch.tensor(np.load(root / f"{name}.npy"), device=dev)
             err = float((got - live).abs().max())
             l1_live, l1_got = mel_l1(live, batch8), mel_l1(got, batch8)
             launches = child[name]["launches"]
-            tc, pk = want_launches[name]
+            tc, pk, gn = want_launches[name]
             require(tuple(got.shape) == (8, 256 * HOP) and launches["griffin_lim_tc"] == tc
-                    and launches["packed_up"] == pk and launches["griffin_lim"] == 0,
+                    and launches["packed_up"] == pk and launches["griffin_lim"] == 0
+                    and launches["group_norm_act"] == gn,
                     f"export {name}: shape {tuple(got.shape)}, launches {launches}")
             require(abs(l1_got - l1_live) <= 1e-4,
                     f"export {name}: mel L1 {l1_got} vs live {l1_live}, max|Δ| {err}")
@@ -1642,7 +1778,9 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
     torch.cuda.synchronize()
     out["aot_launches"] = counts()
     require(tuple(wav.shape) == (1, 256 * HOP) and bool(torch.isfinite(wav).all())
-            and tc(out["aot_launches"]) == 61, f"aot artifact {out['aot_launches']}")
+            and tc(out["aot_launches"]) == 61
+            and norm_pairs(out["aot_launches"]["group_norm_act"], 11, 1),
+            f"aot artifact {out['aot_launches']}")
     print(f"(m-a) the aot stage's artifact (1, 256) served: launches {out['aot_launches']}")
     train_dir = str(run / "train")
 
@@ -1819,6 +1957,7 @@ def main() -> int:
     from advoc_tpu_torch.ops.kernels import _build
     from advoc_tpu_torch.ops.kernels.featurizer import fused_melspec_kernel, fused_melspec_plain
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
+    from advoc_tpu_torch.ops.kernels.group_norm import group_norm_act_kernel
     from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
     from advoc_tpu_torch.utils.roofline import (
@@ -1846,7 +1985,8 @@ def main() -> int:
     counters = (("griffin_lim", griffin_lim_kernel, "launches"),
                 ("griffin_lim_tc", griffin_lim_kernel, "tc_launches"),
                 ("fused_melspec", fused_melspec_kernel, "launches"),
-                ("packed_up", packed_up_kernel, "launches"))
+                ("packed_up", packed_up_kernel, "launches"),
+                ("group_norm_act", group_norm_act_kernel, "launches"))
 
     def zero_counts() -> None:
         for _, k, attr in counters:
@@ -2158,6 +2298,9 @@ def main() -> int:
           f"at cin=128 the kernel takes {up128_ms:.3f} ms")
     del x, wt, bias, up_args, x_nchw
 
+    # -- 2d. GroupNorm + activation against its plain version -------------------
+    gn_row = group_norm(dev)
+
     # -- 3. Main path: full-width Vocoder ---------------------------------------
     cfg = AdvocConfig()
     gen = AdvocGenerator(cfg)
@@ -2178,8 +2321,10 @@ def main() -> int:
     torch.cuda.synchronize()
     voc_launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(voc_launches == {**gl_path, "fused_melspec": 0, "packed_up": 0},
-            f"G-L kernel launches on the main path: {voc_launches}")
+    # One generator call a Vocoder call: the GroupNorm pair at each of 11 levels.
+    require(voc_launches == {**gl_path, "fused_melspec": 0, "packed_up": 0,
+                             "group_norm_act": 2 * 2 * 11},
+            f"kernel launches on the main path: {voc_launches}")
     for name, w, shape in (("batch", wav, (128, 256 * HOP)), ("utterance", wav_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"{name} shape {tuple(w.shape)}")
         require(bool(torch.isfinite(w).all()), f"{name} finite")
@@ -2195,8 +2340,8 @@ def main() -> int:
     torch.cuda.synchronize()
     hi_launches = counts()
     require(hi_launches == {"griffin_lim": 2 * 30 + 1, "griffin_lim_tc": 0,
-                            "fused_melspec": 0, "packed_up": 0},
-            f"G-L kernel launches at gl_precision='highest': {hi_launches}")
+                            "fused_melspec": 0, "packed_up": 0, "group_norm_act": 2 * 11},
+            f"kernel launches at gl_precision='highest': {hi_launches}")
     l1_hi = mel_l1(wav_hi, batch)
     require(abs(l1_batch - l1_hi) < 2e-3, f"mel L1 default {l1_batch} vs highest {l1_hi}")
     print(f"vocoder gl_precision='highest': launches {hi_launches}, batch 128×256 mel L1 "
@@ -2299,7 +2444,9 @@ def main() -> int:
     out_long = copy_synth(wav_in_long)
     torch.cuda.synchronize()
     slice_launches = counts()
-    require(slice_launches == {**gl_path, "fused_melspec": 2, "packed_up": 2},
+    # The packed tail normalises its finest level itself: 10 GroupNorm pairs a call.
+    require(slice_launches == {**gl_path, "fused_melspec": 2, "packed_up": 2,
+                               "group_norm_act": 2 * 2 * 10},
             f"kernel launches on the slice's path: {slice_launches}")
     for name, w, shape in (("batch", out, (128, 256 * HOP)), ("utterance", out_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"slice {name} shape {tuple(w.shape)}")
@@ -2489,6 +2636,28 @@ def main() -> int:
         "library_ms": up_lib_ms,
         "library": "F.conv_transpose2d (cuDNN) + Σy, Σy² pass",
         "library_conv_only_ms": up_conv_ms,
+    }, {
+        "name": "group_norm_act",
+        "route": "cuda",
+        "source": "advoc_tpu_torch/csrc/group_norm.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package leaves GroupNorm to XLA",
+        "design": "a statistics pass (16-byte loads in the convolution's layout, per-channel "
+                  "f32 sums in registers, fixed-order partials per (unit, tile, group)) and a "
+                  "normalise-activate pass (the plain formula op by op, bf16 out in x's layout)",
+        "launches_vocoder_path": voc_launches["group_norm_act"],
+        "launches_exported_vocoder": rest["export_default"]["launches"]["group_norm_act"],
+        "checks": "pass",
+        "ms": gn_row["ms"],
+        "ms_up5": gn_row["levels"]["up5"]["ms"],
+        "plain_ms": gn_row["plain_ms"],
+        "bound_ms": gn_row["bound_ms"],
+        "bound_ms_up5": gn_row["levels"]["up5"]["bound_ms"],
+        "two_pass_ms": gn_row["two_pass_ms"],
+        "bound_by": "bytes",
+        "levels": gn_row["levels"],
+        "library_ms": gn_row["library_ms"],
+        "library": "F.group_norm (bf16 weights) + the activation, timed only",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,14 @@ import torch
 from advoc_tpu_torch.data.synthetic import synthetic_speech
 from advoc_tpu_torch.infer import Vocoder
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
+from advoc_tpu_torch.models.advoc.model import small_config
 from advoc_tpu_torch.ops import spectral as sp
 from advoc_tpu_torch.ops.kernels import featurizer as tfeat
 from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
+from advoc_tpu_torch.ops.kernels import group_norm as tgn
 from advoc_tpu_torch.ops.kernels import packed_up as tpu
 from advoc_tpu_torch.ops.reference import AudioParams
+from advoc_tpu_torch.utils.roofline import group_norm_levels
 
 pytestmark = pytest.mark.cuda
 
@@ -335,7 +338,9 @@ def test_packed_tail_refuses_gradients_on_the_card(dev):
 
 def test_train_step_on_the_card(dev):
     """One bf16 train step at a small width: finite metrics on the device,
-    every tensor updated, no port kernel launched."""
+    every tensor updated. The D update's frozen generator (under no_grad)
+    takes the GroupNorm kernel, two launches at each of its 7 levels; the
+    G update, under autograd, the plain GroupNorm; no other port kernel."""
     from advoc_tpu_torch.models.advoc import PatchDiscriminator
     from advoc_tpu_torch.train import gan
 
@@ -343,12 +348,14 @@ def test_train_step_on_the_card(dev):
     g, d = AdvocGenerator(cfg).to(dev), PatchDiscriminator(cfg).to(dev)
     gs, ds = gan.make_states(g, d, seed=0)
     before = {n: p.detach().clone() for n, p in g.named_parameters()}
-    launches = (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches)
+    launches = (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches,
+                tgn.group_norm_act_kernel.launches)
     wav = torch.tensor(np.stack([synthetic_speech(i, 64 * 256) for i in range(2)]), device=dev)
     _, _, m = gan.make_advoc_train_step(g, d, cfg)(gs, ds, wav)
     assert all(v.is_cuda and bool(torch.isfinite(v)) for v in m.values())
     assert all(not torch.equal(p, before[n]) for n, p in g.named_parameters())
-    assert (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches) == launches
+    assert (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches,
+            tgn.group_norm_act_kernel.launches) == (*launches[:2], launches[2] + 2 * 7)
 
 
 def test_kernels_without_a_backward_refuse_gradients(dev):
@@ -413,6 +420,170 @@ def test_packed_up_kernel_rejects_what_it_cannot_take(dev):
         tpu.packed_up_kernel(x, wt, bias, f=8, tm=8)
 
 
+# -- GroupNorm + activation on the card -------------------------------------------
+
+
+def _ulp_excess(got: torch.Tensor, want: torch.Tensor, act: str) -> float:
+    """The largest of |got − want| − (k·ulp(want) + 1e-5) over two bf16
+    tensors, k = 1, or 2 on LeakyReLU's negative side; ≤ 0 where every
+    element is within its bound."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
+    k = torch.where(w < 0, 2.0 if act == "leaky_relu" else 1.0, 1.0)
+    return float(((got.float() - w).abs() - (k * ulp + 1e-5)).max())
+
+
+def _gn_launch(x, weight, bias, act):
+    """The kernel at 8 groups: (y, its (mean, inv) statistics (B, 8, 2))."""
+    y, scratch = tgn._launch(x, weight, bias, 8, act)
+    return y, scratch[: 2 * x.shape[0] * 8].view(x.shape[0], 8, 2)
+
+
+def _gn_inputs(dev, shape, seed, nchw=False):
+    """bf16 x with a mean and a scale of its own in each channel, in the
+    convolutions' channels-last layout (or contiguous NCHW); f32 weight and
+    bias around 1 and 0."""
+    b, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * (0.5 + torch.rand(
+        (1, c, 1, 1), generator=g, device=dev)) + torch.randn((1, c, 1, 1), generator=g,
+                                                               device=dev)).to(torch.bfloat16)
+    x = x.contiguous() if nchw else x.contiguous(memory_format=torch.channels_last)
+    weight = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
+    return x, weight, 0.1 * torch.randn(c, generator=g, device=dev)
+
+
+_GN_LEVELS = [(name, shape) for cfg in (AdvocConfig(), small_config())
+              for name, _, shape in group_norm_levels(cfg, 2)]
+
+
+@pytest.mark.parametrize("name,shape", _GN_LEVELS,
+                         ids=[f"{'full' if i < 11 else 'small'}-{n}"
+                              for i, (n, _) in enumerate(_GN_LEVELS)])
+def test_group_norm_act_kernel_matches_plain(dev, name, shape):
+    """Every normalised level of AdvocConfig() and small_config() at B = 2,
+    channels-last and NCHW, LeakyReLU and ReLU: the kernel's statistics
+    within 1e-5 relative of the plain ones; its output bit-equal to the
+    plain formula applied with its own statistics (the same ops, each
+    rounded); x's layout kept. Against the plain version end to end the two
+    differ only by the order of the sums: within one bf16 ulp (two on
+    LeakyReLU's negative side: a one-ulp difference before the activation,
+    times 0.2 and rounded again) and 1e-5, which covers values near 0,
+    where the statistics' last bits (≈ 1e-7 of the mean) are many ulps."""
+    for nchw in (False, True):
+        x, weight, bias = _gn_inputs(dev, shape, seed=sum(shape), nchw=nchw)
+        mean, inv = tgn.group_norm_stats_plain(x, 8)
+        for act in tgn.ACTS:
+            before = tgn.group_norm_act_kernel.launches
+            y, stats = _gn_launch(x, weight, bias, act)
+            torch.cuda.synchronize()
+            assert tgn.group_norm_act_kernel.launches == before + 2
+            assert y.shape == x.shape and y.dtype == torch.bfloat16 and y.stride() == x.stride()
+            torch.testing.assert_close(stats[..., 0], mean, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(stats[..., 1], inv, rtol=1e-5, atol=0)
+            same = tgn.group_norm_apply_plain(x, stats[..., 0], stats[..., 1], weight, bias, act)
+            assert torch.equal(y, same), f"{name} nchw={nchw} {act}"
+            excess = _ulp_excess(y, tgn.group_norm_act_plain(x, weight, bias, 8, act), act)
+            assert excess <= 0, (name, nchw, act, excess)
+            torch.testing.assert_close(tgn.group_norm_act_kernel(x, weight, bias, 8, act), y,
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_group_norm_act_kernel_in_every_compute_dtype(dev, dtype):
+    """The generator's other compute dtypes take the same kernel: at the
+    full width's largest level and the small width's (3 channels a group),
+    both layouts and both activations, the statistics within 1e-5 relative
+    of the plain ones, the output in x's dtype and layout and bit-equal to
+    the plain formula applied with the kernel's own statistics."""
+    for shape in ((2, 64, 256, 256), (2, 24, 128, 128)):
+        for nchw in (False, True):
+            x, weight, bias = _gn_inputs(dev, shape, seed=sum(shape), nchw=nchw)
+            x = x.to(dtype)
+            mean, inv = tgn.group_norm_stats_plain(x, 8)
+            for act in tgn.ACTS:
+                y, stats = _gn_launch(x, weight, bias, act)
+                assert y.dtype == dtype and y.stride() == x.stride()
+                torch.testing.assert_close(stats[..., 0], mean, rtol=1e-5, atol=1e-6)
+                torch.testing.assert_close(stats[..., 1], inv, rtol=1e-5, atol=0)
+                same = tgn.group_norm_apply_plain(x, stats[..., 0], stats[..., 1], weight, bias,
+                                                  act)
+                assert torch.equal(y, same), (shape, nchw, act)
+
+
+def test_float32_generator_takes_the_group_norm_kernel(dev):
+    """A float32 generator on the card (the data-parallel check's "tiny"
+    config) without autograd launches the kernel pair at each of its 7
+    levels and stays within f32 rounding of the same generator under
+    autograd, which takes the plain GroupNorm. TF32 convolutions off: a
+    statistic's last bit may flip an input's TF32 rounding (2^-11), which
+    the convolutions carry to the output (1.7e-3 seen)."""
+    g = AdvocGenerator(AdvocConfig(n_frames=64, width=8, depth=4, dtype="float32")).to(dev)
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.rand((2, 64, 513), device=dev)
+    before = tgn.group_norm_act_kernel.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.inference_mode():
+            got = g(x)
+        torch.cuda.synchronize()
+        assert tgn.group_norm_act_kernel.launches == before + 2 * 7
+        assert got.dtype == torch.float32
+        want = g(x)
+    assert tgn.group_norm_act_kernel.launches == before + 2 * 7 and want.requires_grad
+    torch.testing.assert_close(got, want.detach(), rtol=1e-4, atol=1e-4)
+
+
+def test_group_norm_act_kernel_constant_group(dev):
+    """A group whose values are all one number: var 0 (E[x²] − E[x]² exact
+    here, clamped at 0 as any negative rounding would be), inv =
+    rsqrt(1e-6), so the group's output is act(bf16(bias)) exactly, as the
+    plain version's."""
+    for nchw in (False, True):
+        x, weight, bias = _gn_inputs(dev, (2, 64, 16, 32), seed=5, nchw=nchw)
+        x[:, 8:16] = 1.5
+        y, stats = _gn_launch(x, weight, bias, "relu")
+        assert float(stats[0, 1, 0]) == 1.5 and abs(float(stats[1, 1, 1]) - 1e3) <= 1e-3
+        want = torch.relu(bias[8:16].to(torch.bfloat16))[None, :, None, None].expand(2, 8, 16, 32)
+        assert torch.equal(y[:, 8:16], want)
+        assert torch.equal(tgn.group_norm_act_plain(x, weight, bias, 8, "relu")[:, 8:16], want)
+
+
+def test_generator_takes_the_group_norm_kernel(dev):
+    """The full-width generator without autograd launches the kernel pair at
+    each of its 11 normalised levels, and stays within the bf16 bound that
+    holds the packed tail to the default one (tests/test_models.py's) of the
+    same generator under autograd, which takes the plain GroupNorm."""
+    g = AdvocGenerator(AdvocConfig()).to(dev)
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.rand((2, 256, 513), device=dev)
+    before = tgn.group_norm_act_kernel.launches
+    with torch.inference_mode():
+        got = g(x)
+    torch.cuda.synchronize()
+    assert tgn.group_norm_act_kernel.launches == before + 2 * 11
+    want = g(x)  # grad on, parameters require it: the plain path
+    assert tgn.group_norm_act_kernel.launches == before + 2 * 11 and want.requires_grad
+    torch.testing.assert_close(got, want.detach(), rtol=0, atol=4e-2)
+    assert float((got - want.detach()).abs().mean()) < 5e-3
+
+
+def test_group_norm_act_kernel_rejects_what_it_cannot_take(dev):
+    x, weight, bias = _gn_inputs(dev, (2, 64, 8, 8), seed=0)
+    with pytest.raises(ValueError, match="C % 8"):
+        tgn.group_norm_act_kernel(x[:, :60], weight[:60], bias[:60], 4, "relu")
+    with pytest.raises(ValueError, match="C % 8"):
+        tgn.group_norm_act_kernel(x, weight, bias, 7, "relu")
+    with pytest.raises(ValueError, match="float16 or float32"):
+        tgn.group_norm_act_kernel(x.double(), weight, bias, 8, "relu")
+    with pytest.raises(ValueError, match="channels-last or contiguous"):
+        tgn.group_norm_act_kernel(x.transpose(2, 3), weight, bias, 8, "relu")
+    with pytest.raises(ValueError, match="act"):
+        tgn.group_norm_act_kernel(x, weight, bias, 8, "gelu")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tgn.group_norm_act_kernel(x, weight.requires_grad_(True), bias, 8, "relu")
+
+
 # -- The streaming engine on the card --------------------------------------------
 
 
@@ -426,8 +597,6 @@ def _stream_chunks(n_streams: int, n_chunks: int, chunk: int = 64) -> np.ndarray
 
 
 def _small_generator():
-    from advoc_tpu_torch.models.advoc.model import small_config
-
     g = AdvocGenerator(small_config())
     g.reset_parameters(torch.Generator().manual_seed(0))
     return g
@@ -517,10 +686,11 @@ def test_vocode_cli_takes_the_tensor_core_kernel(dev, tmp_path):
 @pytest.mark.parametrize("packed_tail", [False, True])
 def test_exported_vocoder_takes_the_kernels_on_the_card(dev, tmp_path, packed_tail):
     """An artifact of a Vocoder on the card records the registered kernels
-    (advoc::griffin_lim, and advoc::packed_up under the packed tail); served,
-    it launches them (2·4 + 1 tensor-core G-L launches, one B4 call) and
-    equals the live call bit for bit (the same operators on the same
-    weights)."""
+    (advoc::griffin_lim, advoc::group_norm_act at each normalised level but
+    the packed tail's, and advoc::packed_up under the packed tail); served,
+    it launches them (2·4 + 1 tensor-core G-L launches, two GroupNorm
+    launches a level, one B4 call) and equals the live call bit for bit
+    (the same operators on the same weights)."""
     from advoc_tpu_torch.infer.export import ExportedVocoder, export_vocoder
     from advoc_tpu_torch.ops.kernels import registered
 
@@ -531,16 +701,52 @@ def test_exported_vocoder_takes_the_kernels_on_the_card(dev, tmp_path, packed_ta
     mel, _ = _mel_mag(dev, 2, 128, 512)
     export_vocoder(voc, [(2, 128)], tmp_path, allow_custom_calls=True)
     program = torch.export.load(tmp_path / "voc_b2_t128.pt2")
-    want_ops = ["advoc::packed_up"] * packed_tail + ["advoc::griffin_lim"]
+    n_norms = 3 + 4 - packed_tail  # down1-3, up0-3 (the packed tail's norm is its own)
+    want_ops = (["advoc::packed_up"] * packed_tail + ["advoc::griffin_lim"]
+                + ["advoc::group_norm_act"] * n_norms)
     assert sorted(registered.recorded(program.graph_module)) == sorted(want_ops)
     served = ExportedVocoder(tmp_path)
     served(mel)
-    before = (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches)
+    before = (tgl.griffin_lim_kernel.tc_launches, tpu.packed_up_kernel.launches,
+              tgn.group_norm_act_kernel.launches)
     got = served(mel)
     torch.cuda.synchronize()
     assert tgl.griffin_lim_kernel.tc_launches - before[0] == 2 * 4 + 1
     assert tpu.packed_up_kernel.launches - before[1] == (1 if packed_tail else 0)
+    assert tgn.group_norm_act_kernel.launches - before[2] == 2 * n_norms
     torch.testing.assert_close(got, voc(mel), rtol=0, atol=0)
+
+
+def test_xla_export_on_the_card_is_plain_aten(dev, tmp_path):
+    """Without allow_custom_calls a phase_impl="xla" Vocoder on the card
+    exports plain aten: its U-Net levels are traced as the plain GroupNorm
+    and no advoc operator is recorded. Served, it launches no GroupNorm
+    kernel and vocodes as the live call (which launches it at each of 7
+    levels) does, up to the order of the statistics' sums: mel L1 within
+    1e-3."""
+    from advoc_tpu_torch.infer.export import ExportedVocoder, export_vocoder
+    from advoc_tpu_torch.ops.kernels import registered
+
+    g = AdvocGenerator(AdvocConfig(n_frames=64, width=16, depth=4))
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    voc = Vocoder(g, chunk_frames=64, overlap_frames=8, gl_iters=4, device="cuda",
+                  phase_impl="xla")
+    mel, _ = _mel_mag(dev, 2, 128, 512)
+    export_vocoder(voc, [(2, 128)], tmp_path)
+    assert registered.recorded(torch.export.load(tmp_path / "voc_b2_t128.pt2").graph_module) == []
+    served = ExportedVocoder(tmp_path)
+    before = tgn.group_norm_act_kernel.launches
+    got = served(mel)
+    torch.cuda.synchronize()
+    assert tgn.group_norm_act_kernel.launches == before
+    live = voc(mel)
+    torch.cuda.synchronize()
+    assert tgn.group_norm_act_kernel.launches == before + 2 * 7
+
+    def mel_l1(wav):
+        return float((sp.waveform_to_r9y9_melspec(wav)[:, : mel.shape[1]] - mel).abs().mean())
+
+    assert abs(mel_l1(got) - mel_l1(live)) <= 1e-3
 
 
 def test_registered_operators_on_the_card(dev):
@@ -569,6 +775,11 @@ def test_registered_operators_on_the_card(dev):
     assert s1.data_ptr() != s2.data_ptr() and y.shape == (1, 32, 64, 64)
     want = tpu.packed_up_plain(x, wt, bias, f=32, tm=8).float()
     torch.testing.assert_close(y.float(), want, rtol=0, atol=1e-2 * float(want.abs().max()))
+    x, weight, bias = _gn_inputs(dev, (2, 64, 16, 32), seed=3)
+    before = tgn.group_norm_act_kernel.launches
+    y = registered.group_norm_act_op(x, weight, bias, 8, "leaky_relu")
+    assert tgn.group_norm_act_kernel.launches == before + 2 and y.stride() == x.stride()
+    assert torch.equal(y, tgn.group_norm_act_kernel(x, weight, bias, 8, "leaky_relu"))
 
 
 # -- LWS and the matmul G-L's default precision on the card ------------------------
@@ -684,6 +895,10 @@ def test_each_kernel_launches_on_its_tensors_card(second_card):
     y = tpu.packed_up_kernel(x, wt, bias, f=40, tm=8).float()
     want = tpu.packed_up_plain(x, wt, bias, f=40, tm=8).float()
     torch.testing.assert_close(y, want, rtol=0, atol=1e-2 * float(want.abs().max()))
+    x, weight, bias = _gn_inputs(dev, (2, 64, 16, 32), seed=4)
+    y, stats = _gn_launch(x, weight, bias, "relu")
+    assert y.device == dev and torch.equal(
+        y, tgn.group_norm_apply_plain(x, stats[..., 0], stats[..., 1], weight, bias, "relu"))
     assert torch.cuda.current_device() == 0
 
 

@@ -198,7 +198,8 @@ class TestKernelArtifacts:
         tgl.griffin_lim_kernel(mag, 1, 0.99).sum().backward()
         assert mag.grad is not None
 
-    @pytest.mark.parametrize("op", ["griffin_lim", "fused_melspec", "packed_up"])
+    @pytest.mark.parametrize("op", ["griffin_lim", "fused_melspec", "packed_up",
+                                    "group_norm_act"])
     def test_registered_operators_pass_opcheck(self, op):
         g = torch.Generator().manual_seed(0)
         p = registered.params_list(AudioParams())
@@ -215,6 +216,14 @@ class TestKernelArtifacts:
 
             cases = [(torch.randn((2, 4096), generator=g) * 0.1, p)]
             fn, plain = registered.fused_melspec_op, (lambda w, pp: fused_melspec_plain(w))
+        elif op == "group_norm_act":
+            from advoc_tpu_torch.ops.kernels.group_norm import group_norm_act_plain
+
+            x = torch.randn((2, 16, 4, 6), generator=g).to(torch.bfloat16)
+            w, b = torch.rand(16, generator=g) + 0.5, torch.randn(16, generator=g) * 0.1
+            cases = [(x.contiguous(memory_format=torch.channels_last), w, b, 8, "leaky_relu"),
+                     (x, w, b, 4, "relu")]
+            fn, plain = registered.group_norm_act_op, group_norm_act_plain
         else:
             from advoc_tpu_torch.ops.kernels.packed_up import packed_up_plain
 
@@ -232,6 +241,32 @@ class TestKernelArtifacts:
             # Without stats packed_up's operator adds two empty sums: zip drops them.
             for a, b in zip(as_tuple(fn(*args)), as_tuple(plain(*args))):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+    def test_group_norm_act_records_its_layout(self):
+        """The wrapper traced on the CPU is advoc::group_norm_act, whose fake
+        implementation gives the output x's shape, dtype and channels-last
+        strides; the program equals the plain version bit for bit."""
+        from advoc_tpu_torch.ops.kernels import group_norm as tgn
+
+        class Norm(torch.nn.Module):
+            def forward(self, x):
+                return tgn.group_norm_act_kernel(x, torch.linspace(0.5, 1.5, 16),
+                                                 torch.zeros(16), 8, "relu")
+
+        x = torch.randn((2, 16, 4, 6)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        program = torch.export.export(Norm(), (x,))
+        assert registered.recorded(program.graph_module) == ["advoc::group_norm_act"]
+        out = next(n for n in program.graph_module.graph.nodes
+                   if n.op == "call_function" and "group_norm_act" in str(n.target))
+        val = out.meta["val"]
+        assert (tuple(val.shape), val.dtype, val.stride()) == (x.shape, torch.bfloat16,
+                                                                x.stride())
+        got = program.module()(x)
+        assert torch.equal(got, tgn.group_norm_act_plain(x, torch.linspace(0.5, 1.5, 16),
+                                                         torch.zeros(16), 8, "relu"))
+        assert got.stride() == x.stride()
 
 
 class TestCli:
