@@ -39,6 +39,7 @@ from advoc_tpu_torch.models.layers import (
     flax_init,
     phase_shuffle,
 )
+from advoc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -86,16 +87,22 @@ def up_stack(cin: int, d: int, c0: int, n_up: int, k: int, s: int) -> list[nn.Co
     return layers
 
 
+# The levels' range names, made once: a span that is off costs one check.
+_UP_SPANS = tuple(f"up{i}" for i in range(32))
+
+
 def run_up_stack(x: Tensor, layers, dtype: torch.dtype, act) -> Tensor:
     """The stack on (B, c0, T): ``act`` after each level in ``dtype``, the
-    last level in float32 → tanh, (B, T·s^n)."""
+    last level in float32 → tanh, (B, T·s^n). Under a profiler level i is
+    the range ``advoc.up<i>`` (its transposed convolution, crop and
+    activation; the last's float32 cast and tanh)."""
     for i, up in enumerate(layers):
         last = i == len(layers) - 1
-        x = conv_transpose_same(x.to(torch.float32) if last else x, up,
-                                torch.float32 if last else dtype)
-        if not last:
-            x = act(x)
-    return torch.tanh(x[:, 0])
+        with profiling.span(_UP_SPANS[i]):
+            x = conv_transpose_same(x.to(torch.float32) if last else x, up,
+                                    torch.float32 if last else dtype)
+            x = torch.tanh(x[:, 0]) if last else act(x)
+    return x
 
 
 def down_stack(cin: int, d: int, n: int, k: int, s: int) -> list[nn.Conv1d]:
@@ -169,9 +176,15 @@ class WaveGANGenerator(nn.Module):
         flax_init(self, generator)
 
     def forward(self, z: Tensor) -> Tensor:
+        """Under a profiler the call is the range ``advoc.wavegan``: the
+        projection (``advoc.project``: the dense layer, its reshape and
+        ReLU), then the levels (:func:`run_up_stack`)."""
         dt = self.cfg.compute_dtype
-        x = dense(z, self.project, dt).reshape(z.shape[0], 16, self.c0).permute(0, 2, 1)
-        return run_up_stack(F.relu(x), self.ups, dt, F.relu)
+        with profiling.span("wavegan"):
+            with profiling.span("project"):
+                x = dense(z, self.project, dt).reshape(z.shape[0], 16, self.c0).permute(0, 2, 1)
+                x = F.relu(x)
+            return run_up_stack(x, self.ups, dt, F.relu)
 
 
 class WaveGANDiscriminator(ShuffledDiscriminator):

@@ -8,9 +8,10 @@
   trace of any ``torch.profiler`` (:func:`trace`'s too), around the
   kernels they launch; never while the caller is traced (``torch.export``).
   Off, a span is one check.
-* :func:`device_ms`: the card's time in each ``advoc.`` range, from a
-  profiler's events: every kernel counts in the ranges open on the host
-  when it was launched.
+* :func:`device_ms`: the card's time in each ``advoc.`` range a call (a
+  ``Vocoder`` call, or the range its ``per`` names), from a profiler's
+  events: every kernel counts in the ranges open on the host when it was
+  launched.
 * :func:`timed_call`: wall-clock timing that synchronizes the card before
   each clock read (PyTorch returns before the card finishes).
 """
@@ -59,15 +60,17 @@ def span(name: str):
     return _range(PREFIX + name)
 
 
-def device_ms(events: Iterable) -> dict[str, float]:
-    """Device ms of each ``advoc.`` range in one ``Vocoder`` call: the
-    kernels, copies and sets that a range's block launched, its nested
-    ranges' included, summed over the ``advoc.vocode`` ranges and divided
-    by their number; empty without one. ``events``: a profiler's
-    (``prof.profiler.kineto_results.events()``). A kernel belongs to the
-    ranges open on the host when the runtime call that launched it ran
-    (their correlation id); the ranges are taken as one thread's."""
-    cuda, per = torch.autograd.DeviceType.CUDA, PREFIX + "vocode"
+def device_ms(events: Iterable, per: str = "vocode") -> dict[str, float]:
+    """Device ms of each ``advoc.`` range in one call, the range
+    ``advoc.<per>`` (a ``Vocoder`` call by default; ``"wavegan"``, a
+    WaveGAN generator call): the kernels, copies and sets that a range's
+    block launched, its nested ranges' included, summed over the
+    ``advoc.<per>`` ranges and divided by their number; empty without one.
+    Only launches inside an ``advoc.<per>`` range count. ``events``: a
+    profiler's (``prof.profiler.kineto_results.events()``). A kernel belongs
+    to the ranges open on the host when the runtime call that launched it
+    ran (their correlation id); the ranges are taken as one thread's."""
+    cuda, per = torch.autograd.DeviceType.CUDA, PREFIX + per
     edges, launches, work = [], {}, []
     for e in events:
         name = e.name()

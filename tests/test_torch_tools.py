@@ -202,6 +202,21 @@ class TestDeviceMs:
             events.append(_Event("k", 500_000, 9_000_000, cuda=True, corr=999))
             assert profiling.device_ms(events) == base
 
+    def test_per_names_the_call(self):
+        """``per`` names the range of one call: generator calls
+        (``advoc.wavegan``) read as the same events under ``advoc.vocode``
+        do by default, and each reads empty under the other's name."""
+        events = _call(0, self.MS[0], 1) + _call(5000, self.MS[1], 101)
+        base = profiling.device_ms(events)
+        renamed = [_Event("advoc.wavegan", *e._v[1:]) if e.name() == "advoc.vocode" else e
+                   for e in events]
+        got = profiling.device_ms(renamed, per="wavegan")
+        assert got == {("advoc.wavegan" if n == "advoc.vocode" else n): v
+                       for n, v in base.items()}
+        assert profiling.device_ms(events, per="vocode") == base
+        assert profiling.device_ms(renamed) == {}
+        assert profiling.device_ms(events, per="wavegan") == {}
+
 
 class TestRoofline:
     def test_peaks_on_the_cpu_are_assumed(self):

@@ -11,6 +11,8 @@ to the port's step.
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 import types
 
 import jax
@@ -35,6 +37,7 @@ from advoc_tpu_torch.models.wavegan import (
     WaveGANGenerator,
 )
 from advoc_tpu_torch.train import gan as tgan
+from advoc_tpu_torch.utils import profiling
 
 WAVE = dict(slice_len=1024, latent_dim=32, width=16, n_critic=2, dtype="float32")
 COND = dict(n_frames=16, width=8, dtype="float32")
@@ -170,20 +173,23 @@ def _forward_pair(jmod, tmod, args, **kw):
 class TestModels:
     @pytest.mark.parametrize("kw,tol", [
         (dict(), 1e-5), (dict(kernel=25), 1e-5), (dict(dtype="bfloat16"), 2e-2),
-    ], ids=["f32", "f32_k25", "bf16"])
+        (dict(slice_len=65536, width=2, kernel=25), 1e-5),
+    ], ids=["f32", "f32_k25", "bf16", "f32_65536_k25"])
     def test_wavegan_forward_matches_flax(self, kw, tol):
         """float32 convolutions summed in other orders, within 1e-5
         (measured ≤ 2.6e-7); k25/s4 crops the transposed convolutions' full
         output asymmetrically (10, 11); bf16 within 2e-2 (measured 6.8e-4,
-        the two rounding the bias add in different places)."""
+        the two rounding the bias add in different places). The published
+        65,536 slice (six levels, c0 = 64 · width) at width 2."""
         c = {**WAVE, **kw}
+        n = c["slice_len"]
         rng = np.random.default_rng(0)
         z = rng.normal(size=(2, 32)).astype(np.float32)
         got, want = _forward_pair(jwave.WaveGANGenerator(jwave.WaveGANConfig(**c)),
                                   WaveGANGenerator(WaveGANConfig(**c)), (z,))
-        assert got.shape == (2, 1024)
+        assert got.shape == (2, n)
         np.testing.assert_allclose(got, want, atol=tol)
-        w = rng.uniform(-1, 1, (2, 1024)).astype(np.float32)
+        w = rng.uniform(-1, 1, (2, n)).astype(np.float32)
         got, want = _forward_pair(jwave.WaveGANDiscriminator(jwave.WaveGANConfig(**c)),
                                   WaveGANDiscriminator(WaveGANConfig(**c)), (w,))
         assert got.shape == (2,)
@@ -277,6 +283,94 @@ class TestModels:
             assert abs(float(w.detach().std()) / std - 1.0) < 0.1
             assert float(w.detach().abs().max()) <= 2 * std / 0.87962566103423978 + 1e-6
         assert float(g.upconv0.bias.detach().abs().max()) == 0.0
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The benchmark's plain reference (``benchmark/reference/wavegan.py``),
+    loaded by its path: it is no package of the repository."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmark" / "reference" / "wavegan.py"
+    spec = importlib.util.spec_from_file_location("bench_reference_wavegan", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _carrying(g: WaveGANGenerator, seed: int) -> dict:
+    """Weights under which every level carries signal: kernels normal at
+    √(2·stride / (C_in·k)) (√(2 / latent_dim) for the projection; 0.4 of
+    that at the last level, so tanh stays near its linear range), biases
+    0.1·normal; loaded into ``g`` and returned."""
+    gen = torch.Generator().manual_seed(seed)
+    last = f"upconv{g.cfg.n_up - 1}.weight"
+    sd = {}
+    for name, v in g.state_dict().items():
+        x = torch.randn(v.shape, generator=gen)
+        if name == "project.weight":
+            x *= (2.0 / v.shape[1]) ** 0.5
+        elif name.endswith("weight"):
+            x *= (2.0 * g.cfg.stride / (v.shape[0] * v.shape[2])) ** 0.5 * (0.4 if name == last
+                                                                          else 1.0)
+        else:
+            x *= 0.1
+        sd[name] = x
+    g.load_state_dict(sd)
+    return sd
+
+
+class TestReference:
+    """The port's generator against the benchmark's plain reference, which
+    decides the WaveGAN cell's ``correct`` on the card."""
+
+    @pytest.mark.parametrize("kernel", [24, 25])
+    @pytest.mark.parametrize("slice_len", [1024, 65536])
+    def test_float32_equals_reference(self, reference, slice_len, kernel):
+        """float32 at width 4 (four and six levels; SAME crops (10, 10) and
+        (10, 11)): float32 products, the port's crop taken inside the
+        convolution where the reference slices it off, within 1e-5 (measured
+        ≤ 1.6e-6, 0 at k 25)."""
+        cfg = WaveGANConfig(slice_len=slice_len, width=4, kernel=kernel, dtype="float32")
+        g = WaveGANGenerator(cfg).eval()
+        sd = _carrying(g, seed=kernel)
+        z = torch.randn(2, cfg.latent_dim, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            got = g(z)
+        want = reference.generate(z, sd, dataclasses.asdict(cfg))
+        assert got.shape == want.shape == (2, slice_len) and got.dtype == torch.float32
+        assert float((got - want).abs().max()) < 1e-5
+
+    def test_bf16_near_reference(self, reference):
+        """The configuration's bf16 at the published slice and kernel, width
+        4: each row within 2e-2 relative L2 of the float32 reference. bf16
+        keeps 8 bits, so each level's rounded input, kernel and output is off
+        by ≈ 2^-9 relative, seven products compounding (measured ≤ 6.8e-3);
+        the reference in float8 e4m3 reads 0.114–0.118 here."""
+        cfg = WaveGANConfig(slice_len=65536, width=4, kernel=25)
+        g = WaveGANGenerator(cfg).eval()
+        sd = _carrying(g, seed=3)
+        z = torch.randn(4, cfg.latent_dim, generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            got = g(z)
+        want = reference.generate(z, sd, dataclasses.asdict(cfg))
+        gap = (got - want).norm(dim=1) / want.norm(dim=1)
+        assert got.dtype == torch.float32 and float(gap.max()) < 2e-2
+        assert float(gap.min()) > 0  # bf16 did round
+
+    def test_generator_ranges(self):
+        """Under a profiler a call is ``advoc.wavegan`` ⊃ ``advoc.project``
+        and one ``advoc.up<i>`` a level, each holding its ``advoc.conv``."""
+        cfg = WaveGANConfig(slice_len=1024, width=2, dtype="float32")
+        g = WaveGANGenerator(cfg).eval()
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            g(torch.zeros(1, cfg.latent_dim))
+        got = [(e.name, e.cpu_parent.name if e.cpu_parent else None)
+               for e in prof.events() if e.name.startswith(profiling.PREFIX)]
+        want = [("advoc.wavegan", None), ("advoc.project", "advoc.wavegan"),
+                ("advoc.conv", "advoc.project")]
+        for i in range(cfg.n_up):
+            want += [(f"advoc.up{i}", "advoc.wavegan"), ("advoc.conv", f"advoc.up{i}")]
+        assert got == want
 
 
 def _recording(state):
