@@ -9,7 +9,10 @@
 * :func:`conv_same`: flax ``Conv(padding="SAME", dtype=...)``, 1-D or 2-D,
   on channels-first activations; :func:`conv_transpose_same`: flax
   ``ConvTranspose(padding="SAME")`` (``transpose_kernel=False``), whose
-  kernel the converters store flipped.
+  kernel the converters store flipped; :func:`conv_transpose_act`: a 1-D
+  one with its activation, on the card without autograd the convolution
+  without its bias and the epilogue kernel
+  (:mod:`advoc_tpu_torch.ops.kernels.conv_bias_act`).
 * :func:`dense`: flax ``Dense(dtype=...)``.
 * :func:`phase_shuffle`: WaveGAN's shift of each example along time with
   reflect padding.
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advoc_tpu_torch.ops.kernels.conv_bias_act import conv_bias_act_kernel
 from advoc_tpu_torch.ops.kernels.group_norm import (
     activate,
     group_norm_act_kernel,
@@ -106,16 +110,18 @@ def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _conv(fn, x: Tensor, layer: nn.Module, dtype: torch.dtype, **kw) -> Tensor:
+def _conv(fn, x: Tensor, layer: nn.Module, dtype: torch.dtype, bias: bool = True,
+          **kw) -> Tensor:
     """``fn`` (a functional convolution) of ``x`` with ``layer``'s kernel and
-    bias, all cast to ``dtype``. On the CPU a reduced ``dtype`` runs as
-    float32 on the rounded operands, rounded once (a bf16 convolution that
-    accumulates in float32, as cuDNN's does): torch 2.13's oneDNN bf16
+    bias (none where ``bias`` is False), all cast to ``dtype``. On the CPU a
+    reduced ``dtype`` runs as float32 on the rounded operands, rounded once
+    (a bf16 convolution that accumulates in float32, as cuDNN's does): torch
+    2.13's oneDNN bf16
     convolutions on the CPU return wrong values at some shapes (k24/s4 with
     4 or 8 input channels, k4/s4 with 16; measured). Under a profiler the
     casts and the convolution are the range ``advoc.conv``
     (:func:`~advoc_tpu_torch.utils.profiling.span`)."""
-    args = (x, layer.weight, layer.bias)
+    args = (x, layer.weight, layer.bias) if bias else (x, layer.weight)
     with profiling.span("conv"):
         if x.device.type == "cpu" and dtype != torch.float32:
             return fn(*(a.to(dtype).to(torch.float32) for a in args), **kw).to(dtype)
@@ -148,6 +154,19 @@ def transpose_crop(k: int, s: int) -> tuple[int, int]:
     return k - 1 - pad_a, k - 1 - (pad_len - pad_a)
 
 
+def transpose_geometry(kernel_size, stride):
+    """:func:`conv_transpose_same`'s padding inside the transposed
+    convolution and its output padding, per axis of ``kernel_size`` and
+    ``stride``, and the (cut_lo, cut_hi) left to slice off each axis after
+    it: :func:`transpose_crop` taken inside where it is symmetric ((0, 1) at
+    k25/s4, (0, 0) at k24/s4)."""
+    crops = [transpose_crop(k, s) for k, s in zip(kernel_size, stride)]
+    padding = [min(lo, max(hi, 0)) for lo, hi in crops]
+    extra = [max(-hi, 0) for _, hi in crops]
+    cuts = [(lo - p, max(hi, 0) - p) for (lo, hi), p in zip(crops, padding)]
+    return padding, extra, cuts
+
+
 def conv_transpose_same(x: Tensor, conv: nn.ConvTranspose1d | nn.ConvTranspose2d,
                         dtype: torch.dtype) -> Tensor:
     """flax ``ConvTranspose(padding="SAME", dtype=...)`` of a channels-first
@@ -155,16 +174,38 @@ def conv_transpose_same(x: Tensor, conv: nn.ConvTranspose1d | nn.ConvTranspose2d
     not transpose it): output n·s per axis, :func:`transpose_crop` taken
     inside the transposed convolution where it is symmetric and sliced off
     otherwise."""
-    crops = [transpose_crop(k, s) for k, s in zip(conv.kernel_size, conv.stride)]
-    padding = [min(lo, max(hi, 0)) for lo, hi in crops]
-    extra = [max(-hi, 0) for _, hi in crops]
+    padding, extra, cuts = transpose_geometry(conv.kernel_size, conv.stride)
     y = _conv(F.conv_transpose1d if x.ndim == 3 else F.conv_transpose2d, x, conv, dtype,
               stride=conv.stride, padding=padding, output_padding=extra)
-    for axis, ((lo, hi), p) in enumerate(zip(crops, padding), start=2):
-        cut_lo, cut_hi = lo - p, max(hi, 0) - p
+    for axis, (cut_lo, cut_hi) in enumerate(cuts, start=2):
         if cut_lo or cut_hi:
             y = y.narrow(axis, cut_lo, y.shape[axis] - cut_lo - cut_hi)
     return y
+
+
+def conv_transpose_act(x: Tensor, conv: nn.ConvTranspose1d, dtype: torch.dtype, act: str,
+                       out_dtype: torch.dtype) -> Tensor:
+    """``act`` (``"relu"``, or ``"leaky_relu"`` at slope 0.2) of
+    :func:`conv_transpose_same` of a (B, C, T) ``x`` in ``dtype``, cast to
+    ``out_dtype`` (``dtype`` or float32).
+
+    A CUDA ``x`` that autograd would not record (grad off, or none of x,
+    the kernel and the bias requiring it: the WaveGAN generators' inference,
+    a train step's no_grad fakes) runs the same transposed convolution
+    without its bias, then the epilogue kernel
+    :func:`~advoc_tpu_torch.ops.kernels.conv_bias_act.conv_bias_act_kernel`,
+    which adds the bias cast to ``dtype``, crops and activates in one pass,
+    bit-equal to the ops below. A CPU tensor, and a CUDA one under autograd
+    (the kernel has no backward), run :func:`conv_transpose_same`, the
+    activation and the cast."""
+    params = (conv.weight, conv.bias)
+    if x.is_cuda and not (torch.is_grad_enabled()
+                          and any(t.requires_grad for t in (x, *params))):
+        padding, extra, ((cut_lo, cut_hi),) = transpose_geometry(conv.kernel_size, conv.stride)
+        y = _conv(F.conv_transpose1d, x, conv, dtype, bias=False, stride=conv.stride,
+                  padding=padding, output_padding=extra)
+        return conv_bias_act_kernel(y, conv.bias.to(dtype), cut_lo, cut_hi, act, out_dtype)
+    return activate(conv_transpose_same(x, conv, dtype), act).to(out_dtype)
 
 
 def dense(x: Tensor, layer: nn.Linear, dtype: torch.dtype) -> Tensor:

@@ -89,7 +89,7 @@ class CondWaveGANGenerator(nn.Module):
         dt = self.cfg.compute_dtype
         x = (mel * 2.0 - 1.0).to(dt).permute(0, 2, 1)  # (B, M, T)
         x = F.leaky_relu(conv_same(x, self.trunk, dt), 0.2)
-        return run_up_stack(x, self.ups, dt, lambda y: F.leaky_relu(y, 0.2))
+        return run_up_stack(x, self.ups, dt, "leaky_relu")
 
 
 class CondWaveGANDiscriminator(ShuffledDiscriminator):

@@ -34,6 +34,7 @@ from torch import nn
 from advoc_tpu_torch.models.layers import (
     DTYPES,
     conv_same,
+    conv_transpose_act,
     conv_transpose_same,
     dense,
     flax_init,
@@ -91,17 +92,24 @@ def up_stack(cin: int, d: int, c0: int, n_up: int, k: int, s: int) -> list[nn.Co
 _UP_SPANS = tuple(f"up{i}" for i in range(32))
 
 
-def run_up_stack(x: Tensor, layers, dtype: torch.dtype, act) -> Tensor:
-    """The stack on (B, c0, T): ``act`` after each level in ``dtype``, the
-    last level in float32 → tanh, (B, T·s^n). Under a profiler level i is
-    the range ``advoc.up<i>`` (its transposed convolution, crop and
-    activation; the last's float32 cast and tanh)."""
+def run_up_stack(x: Tensor, layers, dtype: torch.dtype, act: str) -> Tensor:
+    """The stack on (B, c0, T): the activation ``act`` (``"relu"`` or
+    ``"leaky_relu"``) after each level in ``dtype``, the last level in
+    float32 → tanh, (B, T·s^n). Each level but the last is
+    :func:`~advoc_tpu_torch.models.layers.conv_transpose_act`, the one
+    before the last writing float32 for the last to read (on the card
+    without autograd, the epilogue kernel's output). Under a profiler level
+    i is the range ``advoc.up<i>`` (its transposed convolution, bias, crop,
+    activation and cast; the last's convolution and tanh)."""
+    n = len(layers)
     for i, up in enumerate(layers):
-        last = i == len(layers) - 1
         with profiling.span(_UP_SPANS[i]):
-            x = conv_transpose_same(x.to(torch.float32) if last else x, up,
-                                    torch.float32 if last else dtype)
-            x = torch.tanh(x[:, 0]) if last else act(x)
+            if i == n - 1:
+                x = conv_transpose_same(x.to(torch.float32), up, torch.float32)
+                x = torch.tanh(x[:, 0])
+            else:
+                x = conv_transpose_act(x, up, dtype, act,
+                                       torch.float32 if i == n - 2 else dtype)
     return x
 
 
@@ -184,7 +192,7 @@ class WaveGANGenerator(nn.Module):
             with profiling.span("project"):
                 x = dense(z, self.project, dt).reshape(z.shape[0], 16, self.c0).permute(0, 2, 1)
                 x = F.relu(x)
-            return run_up_stack(x, self.ups, dt, F.relu)
+            return run_up_stack(x, self.ups, dt, "relu")
 
 
 class WaveGANDiscriminator(ShuffledDiscriminator):

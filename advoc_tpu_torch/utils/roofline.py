@@ -226,6 +226,37 @@ def group_norm_bytes(shape: tuple[int, ...], itemsize: int = 2, reads: int = 1) 
     return float((reads + 1) * itemsize * n + 8 * shape[1])
 
 
+def conv_bias_act_levels(cfg, b: int) -> list[tuple[str, tuple[int, int, int], tuple[int, int],
+                                                    int]]:
+    """(name, y's shape (B, C, L_full), (cut_lo, cut_hi), the output's
+    itemsize) of each level of ``cfg``'s WaveGAN generator (a
+    ``WaveGANConfig``) that the epilogue kernel ends, on ``b`` latents:
+    ``up0`` … ``up{n_up − 2}``, y being the transposed convolution's
+    un-biased output (length 4n + 1 at k25/s4, 4n at k24) and the last of
+    them writing float32 (4 bytes), the others the compute dtype (2)."""
+    from advoc_tpu_torch.models.layers import transpose_geometry
+
+    (pad,), (extra,), (cut,) = transpose_geometry((cfg.kernel,), (cfg.stride,))
+    c0 = cfg.width * 2**cfg.n_up // 2
+    t, levels = 16, []
+    for i in range(cfg.n_up - 1):
+        full = (t - 1) * cfg.stride + cfg.kernel - 2 * pad + extra
+        levels.append((f"up{i}", (b, max(cfg.width, c0 // 2 ** (i + 1)), full), cut,
+                       4 if i == cfg.n_up - 2 else 2))
+        t *= cfg.stride
+    return levels
+
+
+def conv_bias_act_bytes(shape: tuple[int, int, int], cut: tuple[int, int], itemsize: int = 2,
+                        out_itemsize: int = 2) -> float:
+    """Bytes of one epilogue call on a y of ``shape`` (B, C, L_full) of
+    ``itemsize``-byte elements: y read once, its bias read once, the
+    (B, C, L_full − cut_lo − cut_hi) output written once in
+    ``out_itemsize``-byte elements. No operations worth a roofline."""
+    b, c, full = shape
+    return float(itemsize * (b * c * full + c) + out_itemsize * b * c * (full - sum(cut)))
+
+
 def bound(flops: float, nbytes: float,
           flops_per_s: float = H100_SXM.flops_per_s) -> tuple[float, str]:
     """(the least ms the card could take, "operations" or "bytes"): the

@@ -8,9 +8,11 @@ Builds every CUDA kernel of the port from ``advoc_tpu_torch/csrc`` (one
 PyTorch version on the card: fast G-L in both precisions (the 3xTF32
 kernels at "highest", the bf16 tensor-core kernel at "default", JAX's
 split_synth), the
-fused featurizer, the packed-tail transpose-conv and the U-Net's GroupNorm +
+fused featurizer, the packed-tail transpose-conv, the U-Net's GroupNorm +
 activation (:func:`group_norm`, at the full-width generator's 11 levels on
-128 windows). Then it drives two
+128 windows) and WaveGAN's bias + crop + activation epilogue
+(:func:`conv_bias_act`, at the five levels of wavegan-65536.gen-b256).
+Then it drives two
 paths at the full default width (random weights from a seed), each with the
 kernel counts (one per CUDA library) set to 0 just before it and read just
 after:
@@ -51,7 +53,8 @@ after:
   ``infer`` on the run (the tensor-core G-L kernel); the packed tail
   refusing gradients on the card.
 * the other model families (:func:`families`, phase (j)), where no port
-  kernel runs in a step: the WaveGAN, conditional-WaveGAN and MelSpecGAN
+  kernel runs in a step but the WaveGANs' epilogue in a D update's fake:
+  the WaveGAN, conditional-WaveGAN and MelSpecGAN
   CLIs at their published widths and default batches (16, 16, 32) on the
   same wavs, 6, 10 (a child killed after its checkpoint at step 2 and
   resumed) and 6 steps, every G and D tensor updated and every logged
@@ -284,6 +287,74 @@ def group_norm(dev) -> dict:
           f"{total['plain_ms']:.2f} ms, "
           f"F.group_norm + act {total['library_ms']:.2f} ms; up5 kernel {rows['up5']['ms']:.3f} "
           f"ms of {rows['up5']['bound_ms']:.3f}")
+    return {"levels": rows, **total}
+
+
+def conv_bias_act(dev) -> dict:
+    """2e. WaveGAN's bias + crop + activation epilogue against its plain
+    version at the five levels of wavegan-65536.gen-b256 (256 latents, k25:
+    rows of 4n + 1, cut (0, 1); ReLU; bf16 out at up0–up3, float32 at up4):
+    bit-equal. Times each level: the kernel, the plain version and the
+    yardstick, the ops the port ran before the kernel (the bias ``add_`` in
+    place, as PyTorch adds a convolution's, ReLU on the cropped view, the
+    float32 cast at up4); the bound is one read of y and one write of the
+    output at 3.35 TB/s. Times are the card's kernel time a call from a
+    profiler over 5 calls."""
+    import functools
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from advoc_tpu_torch.models.wavegan import WaveGANConfig
+    from advoc_tpu_torch.ops.kernels import conv_bias_act as cba
+    from advoc_tpu_torch.utils.roofline import bound, conv_bias_act_bytes, conv_bias_act_levels
+
+    def kernel_ms(fn, reps: int = 5) -> float:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(ev.device_time for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+    rows = {}
+    for name, shape, cut, out_size in conv_bias_act_levels(
+            WaveGANConfig(slice_len=65536, kernel=25), 256):
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        y = (torch.randn(shape, generator=g, device=dev) * 2.0).to(torch.bfloat16)
+        b = (0.1 * torch.randn(shape[1], generator=g, device=dev)).to(torch.bfloat16)
+        out = torch.float32 if out_size == 4 else torch.bfloat16
+        args = (y, b, *cut, "relu", out)
+        got, want = cba.conv_bias_act_kernel(*args), cba.conv_bias_act_plain(*args)
+        same = torch.equal(got, want)
+        require(same and got.is_contiguous(), f"conv_bias_act {name} {shape}: equal {same}")
+        del got, want
+
+        def yardstick(y=y, b=b, cut=cut, out=out):
+            z = y.clone()  # the add is in place on cuDNN's output: time it on a copy's
+            z.add_(b.reshape(1, -1, 1))
+            return F.relu(z.narrow(-1, cut[0], z.shape[-1] - sum(cut))).to(out)
+
+        row = {
+            "shape": list(shape), "out": str(out).removeprefix("torch."),
+            "ms": kernel_ms(functools.partial(cba.conv_bias_act_kernel, *args)),
+            "plain_ms": kernel_ms(functools.partial(cba.conv_bias_act_plain, *args)),
+            "yardstick_ms": kernel_ms(yardstick) - kernel_ms(y.clone),
+            "bound_ms": bound(0.0, conv_bias_act_bytes(shape, cut, 2, out_size))[0],
+        }
+        rows[name] = row
+        print(f"conv_bias_act {name} {tuple(shape)} → {row['out']}: kernel {row['ms']:.4f} ms "
+              f"({row['bound_ms'] / row['ms']:.1%} of its {row['bound_ms']:.4f} ms bound), "
+              f"plain {row['plain_ms']:.4f} ms, yardstick add_ + relu + cast "
+              f"{row['yardstick_ms']:.4f} ms; bit-equal")
+        del y, b, args
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "yardstick_ms", "bound_ms")}
+    print(f"conv_bias_act 5 levels B=256: kernel {total['ms']:.3f} ms ({total['bound_ms']:.3f} "
+          f"ms bound, {total['bound_ms'] / total['ms']:.1%}), plain {total['plain_ms']:.3f} ms, "
+          f"yardstick {total['yardstick_ms']:.3f} ms")
     return {"levels": rows, **total}
 
 
@@ -1135,7 +1206,14 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
             "--mode", "train", *args, "--max_steps", str(n_steps), "--ckpt_every",
             str(n_steps), "--log_every", "2"])
         torch.cuda.synchronize()
-        require(counts() == zeros, f"the {name} step runs no port kernel: {counts()}")
+        # A D update's fake is generated under no_grad: on the card each
+        # WaveGAN level but the last ends in the epilogue kernel (n_up − 1
+        # launches a fake, one fake a critic, the resumed run's steps alone).
+        # The G update, under autograd, and MelSpecGAN run no port kernel.
+        fakes = (0 if cli is not wcli else n_steps - r["killed_at"] if "killed_at" in r
+                 else cfg.n_critic * n_steps)
+        require(counts() == {**zeros, "conv_bias_act": fakes * (cfg.n_up - 1 if fakes else 0)},
+                f"the {name} step runs no port kernel but the D update's epilogue: {counts()}")
         n_d = cfg.n_critic if name != "cond_wavegan" else 1
         require(step == gs.step == n_steps and ds.step == n_d * n_steps,
                 f"{name} run ended at step {step} (G {gs.step}, D {ds.step})")
@@ -1275,7 +1353,8 @@ def parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi: str) -> dict
     out["vocoder_launches"] = counts()
     require(out["vocoder_launches"] == {"griffin_lim": 0, "griffin_lim_tc": 2 * (2 * 30 + 1),
                                         "fused_melspec": 0, "packed_up": 0,
-                                        "group_norm_act": 2 * 2 * norm_levels(gen.cfg)},
+                                        "group_norm_act": 2 * 2 * norm_levels(gen.cfg),
+                                        "conv_bias_act": 0},
             f"kernel launches of the two-shard Vocoder: {out['vocoder_launches']}")
     err = float((got - halves).abs().max())
     err_all = float((got - want).abs().max())
@@ -1505,7 +1584,7 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
         torch.cuda.synchronize()
         row["launches"] = counts()
         require(row["launches"] == {"griffin_lim": 0, "griffin_lim_tc": 61, "fused_melspec": 0,
-                                    "packed_up": 0, "group_norm_act": 0},
+                                    "packed_up": 0, "group_norm_act": 0, "conv_bias_act": 0},
                 f"G-L {mode} launches {row['launches']}")
         long_mag = shapes[(1, 1024)][1]
         row.update(
@@ -1957,6 +2036,7 @@ def main() -> int:
     from advoc_tpu_torch.ops.kernels import _build
     from advoc_tpu_torch.ops.kernels.featurizer import fused_melspec_kernel, fused_melspec_plain
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
+    from advoc_tpu_torch.ops.kernels.conv_bias_act import conv_bias_act_kernel
     from advoc_tpu_torch.ops.kernels.group_norm import group_norm_act_kernel
     from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
@@ -1986,7 +2066,8 @@ def main() -> int:
                 ("griffin_lim_tc", griffin_lim_kernel, "tc_launches"),
                 ("fused_melspec", fused_melspec_kernel, "launches"),
                 ("packed_up", packed_up_kernel, "launches"),
-                ("group_norm_act", group_norm_act_kernel, "launches"))
+                ("group_norm_act", group_norm_act_kernel, "launches"),
+                ("conv_bias_act", conv_bias_act_kernel, "launches"))
 
     def zero_counts() -> None:
         for _, k, attr in counters:
@@ -2301,6 +2382,9 @@ def main() -> int:
     # -- 2d. GroupNorm + activation against its plain version -------------------
     gn_row = group_norm(dev)
 
+    # -- 2e. WaveGAN's epilogue against its plain version ----------------------
+    cba_row = conv_bias_act(dev)
+
     # -- 3. Main path: full-width Vocoder ---------------------------------------
     cfg = AdvocConfig()
     gen = AdvocGenerator(cfg)
@@ -2323,7 +2407,7 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # One generator call a Vocoder call: the GroupNorm pair at each of 11 levels.
     require(voc_launches == {**gl_path, "fused_melspec": 0, "packed_up": 0,
-                             "group_norm_act": 2 * 2 * 11},
+                             "group_norm_act": 2 * 2 * 11, "conv_bias_act": 0},
             f"kernel launches on the main path: {voc_launches}")
     for name, w, shape in (("batch", wav, (128, 256 * HOP)), ("utterance", wav_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"{name} shape {tuple(w.shape)}")
@@ -2340,7 +2424,8 @@ def main() -> int:
     torch.cuda.synchronize()
     hi_launches = counts()
     require(hi_launches == {"griffin_lim": 2 * 30 + 1, "griffin_lim_tc": 0,
-                            "fused_melspec": 0, "packed_up": 0, "group_norm_act": 2 * 11},
+                            "fused_melspec": 0, "packed_up": 0, "group_norm_act": 2 * 11,
+                            "conv_bias_act": 0},
             f"kernel launches at gl_precision='highest': {hi_launches}")
     l1_hi = mel_l1(wav_hi, batch)
     require(abs(l1_batch - l1_hi) < 2e-3, f"mel L1 default {l1_batch} vs highest {l1_hi}")
@@ -2446,7 +2531,7 @@ def main() -> int:
     slice_launches = counts()
     # The packed tail normalises its finest level itself: 10 GroupNorm pairs a call.
     require(slice_launches == {**gl_path, "fused_melspec": 2, "packed_up": 2,
-                               "group_norm_act": 2 * 2 * 10},
+                               "group_norm_act": 2 * 2 * 10, "conv_bias_act": 0},
             f"kernel launches on the slice's path: {slice_launches}")
     for name, w, shape in (("batch", out, (128, 256 * HOP)), ("utterance", out_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"slice {name} shape {tuple(w.shape)}")
@@ -2658,6 +2743,25 @@ def main() -> int:
         "levels": gn_row["levels"],
         "library_ms": gn_row["library_ms"],
         "library": "F.group_norm (bf16 weights) + the activation, timed only",
+    }, {
+        "name": "conv_bias_act",
+        "route": "cuda",
+        "source": "advoc_tpu_torch/csrc/conv_bias_act.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package leaves the bias, crop and "
+                         "activation after a transposed convolution to XLA",
+        "design": "one pass from cuDNN's un-biased output to the next level's input: 16-byte "
+                  "stores of 8 outputs a thread, aligned 16-byte loads shifted in registers "
+                  "for rows of odd length, the plain ops' rounding op by op",
+        "checks": "pass",
+        "ms": cba_row["ms"],
+        "plain_ms": cba_row["plain_ms"],
+        "bound_ms": cba_row["bound_ms"],
+        "bound_by": "bytes",
+        "levels": cba_row["levels"],
+        "library_ms": cba_row["yardstick_ms"],
+        "library": "the ops the port ran before it: add_ of the bias, ReLU of the cropped "
+                   "view, the float32 cast at up4",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

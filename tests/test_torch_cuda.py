@@ -15,12 +15,19 @@ from advoc_tpu_torch.infer import Vocoder
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
 from advoc_tpu_torch.models.advoc.model import small_config
 from advoc_tpu_torch.ops import spectral as sp
+from advoc_tpu_torch.models.wavegan import (
+    CondWaveGANConfig,
+    CondWaveGANGenerator,
+    WaveGANConfig,
+    WaveGANGenerator,
+)
+from advoc_tpu_torch.ops.kernels import conv_bias_act as tcba
 from advoc_tpu_torch.ops.kernels import featurizer as tfeat
 from advoc_tpu_torch.ops.kernels import griffin_lim as tgl
 from advoc_tpu_torch.ops.kernels import group_norm as tgn
 from advoc_tpu_torch.ops.kernels import packed_up as tpu
 from advoc_tpu_torch.ops.reference import AudioParams
-from advoc_tpu_torch.utils.roofline import group_norm_levels
+from advoc_tpu_torch.utils.roofline import conv_bias_act_levels, group_norm_levels
 
 pytestmark = pytest.mark.cuda
 
@@ -582,6 +589,105 @@ def test_group_norm_act_kernel_rejects_what_it_cannot_take(dev):
         tgn.group_norm_act_kernel(x, weight, bias, 8, "gelu")
     with pytest.raises(NotImplementedError, match="no backward"):
         tgn.group_norm_act_kernel(x, weight.requires_grad_(True), bias, 8, "relu")
+
+
+# -- WaveGAN's bias + crop + activation epilogue ---------------------------------
+
+_CBA_LEVELS = [(k, name, shape, cut, out)
+               for k in (24, 25)
+               for name, shape, cut, out in conv_bias_act_levels(
+                   WaveGANConfig(slice_len=65536, kernel=k), 4)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("k,name,shape,cut,out", _CBA_LEVELS,
+                         ids=[f"k{k}-{n}" for k, n, *_ in _CBA_LEVELS])
+def test_conv_bias_act_kernel_matches_plain(dev, k, name, shape, cut, out):
+    """The five levels of wavegan-65536.gen-b256 at batch 4, k24 (crop
+    (0, 0)) and k25 (crop (0, 1), rows of odd length starting at every
+    offset modulo 8), both activations, to bf16 and to float32: one launch,
+    bit-equal to the plain version, a new contiguous tensor."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + k)
+    y = (torch.randn(shape, generator=g, device=dev) * 2.0).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(shape[1], generator=g, device=dev)).to(torch.bfloat16)
+    for act in tcba.ACTS:
+        for out_dtype in (torch.bfloat16, torch.float32):
+            before = tcba.conv_bias_act_kernel.launches
+            got = tcba.conv_bias_act_kernel(y, bias, *cut, act, out_dtype)
+            torch.cuda.synchronize()
+            assert tcba.conv_bias_act_kernel.launches == before + 1
+            want = tcba.conv_bias_act_plain(y, bias, *cut, act, out_dtype)
+            assert got.shape == want.shape == (*shape[:2], shape[2] - sum(cut))
+            assert got.dtype == out_dtype and got.is_contiguous()
+            assert torch.equal(_bits(got), _bits(want)), (name, act, out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_conv_bias_act_kernel_in_every_compute_dtype(dev, dtype):
+    """A generator's other compute dtypes take the same kernel: odd rows of
+    65 and 257 (k25), both activations, to the compute dtype and to float32,
+    bit-equal to the plain version."""
+    for shape in ((4, 1024, 65), (3, 24, 257)):
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        y = (torch.randn(shape, generator=g, device=dev) * 2.0).to(dtype)
+        bias = (0.1 * torch.randn(shape[1], generator=g, device=dev)).to(dtype)
+        for act in tcba.ACTS:
+            for out_dtype in {dtype, torch.float32}:
+                got = tcba.conv_bias_act_kernel(y, bias, 0, 1, act, out_dtype)
+                want = tcba.conv_bias_act_plain(y, bias, 0, 1, act, out_dtype)
+                assert torch.equal(_bits(got), _bits(want)), (shape, act, out_dtype)
+
+
+@pytest.mark.parametrize("cond", [False, True], ids=["wavegan", "cond_wavegan"])
+def test_generators_take_the_conv_bias_act_kernel(dev, cond):
+    """WaveGANGenerator at the cell's slice and kernel (65,536 samples, k25)
+    and CondWaveGANGenerator (LeakyReLU) at its defaults, on the card under
+    no_grad: the epilogue kernel once at each level but the last, n_up − 1
+    launches a call, and the waveform of the plain path, bit for bit. The
+    same generator under autograd (the parameters require grad: a training
+    step's G update) takes the plain path and launches it zero times.
+    cuDNN deterministic: its default algorithms for these transposed
+    convolutions differ from run to run in the last bits (9.3e-10 between
+    two calls of one path on an H100), which the kernel does not touch."""
+    if cond:
+        gen = CondWaveGANGenerator(CondWaveGANConfig()).to(dev)
+        inp = torch.rand((2, 64, 80), generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    else:
+        gen = WaveGANGenerator(WaveGANConfig(slice_len=65536, kernel=25)).to(dev)
+        inp = torch.randn((2, 100), generator=torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    gen.reset_parameters(torch.Generator().manual_seed(0))
+    before = tcba.conv_bias_act_kernel.launches
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        with torch.no_grad():
+            got = gen(inp)
+        torch.cuda.synchronize()
+        assert tcba.conv_bias_act_kernel.launches == before + gen.cfg.n_up - 1
+        want = gen(inp)
+    assert tcba.conv_bias_act_kernel.launches == before + gen.cfg.n_up - 1 and want.requires_grad
+    assert got.dtype == torch.float32 and got.shape == (2, gen.cfg.slice_len)
+    assert torch.equal(got, want.detach())
+
+
+def test_conv_bias_act_kernel_rejects_what_it_cannot_take(dev):
+    y = torch.randn((2, 8, 65), device=dev).to(torch.bfloat16)
+    bias = torch.zeros(8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcba.conv_bias_act_kernel(torch.cat([y, y], -1)[..., :65], bias, 0, 1, "relu",
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tcba.conv_bias_act_kernel(y.repeat(2, 1, 1).flatten()[1:1 + y.numel()].view(y.shape),
+                                  bias, 0, 1, "relu", torch.bfloat16)
+    with pytest.raises(ValueError, match="on cuda"):
+        tcba.conv_bias_act_kernel(y, bias.cpu(), 0, 1, "relu", torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tcba.conv_bias_act_kernel(y, bias, 0, 0, "relu", torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tcba.conv_bias_act_kernel(y, bias.requires_grad_(True), 0, 1, "relu", torch.bfloat16)
 
 
 # -- The streaming engine on the card --------------------------------------------
