@@ -74,7 +74,7 @@ def export_vocoder(
     runs where it was traced). An artifact that records a port kernel
     (module docstring) raises unless ``allow_custom_calls``.
     """
-    from advoc_tpu_torch.ops.kernels import group_norm, registered
+    from advoc_tpu_torch.ops.kernels import _build, registered
 
     if voc.mesh is not None:
         raise ValueError("export a Vocoder without a mesh (one device per artifact)")
@@ -98,7 +98,7 @@ def export_vocoder(
         with torch.no_grad():
             fused(mel)  # builds the device constants, which the trace then records as constants
             with (contextlib.nullcontext() if allow_custom_calls
-                  else group_norm.plain_when_traced()):
+                  else _build.plain_when_traced()):
                 program = torch.export.export(fused, (mel,))
         kernels = registered.recorded(program.graph_module)
         if kernels and not allow_custom_calls:

@@ -199,8 +199,9 @@ class _PackedTailUp(nn.Module):
         with profiling.span("conv"):
             wt = self.conv.weight.flip(2, 3).permute(2, 3, 0, 1)
             if self.dtype == torch.bfloat16 and x.is_cuda:
-                _build.refuse_grad([x, *self.parameters()], "packed_tail (kernel B4)",
-                                   "the same parameters with packed_tail=False")
+                if _build.records((x, *self.parameters())):
+                    raise NotImplementedError("packed_tail (kernel B4) has no backward: call it "
+                                              "under no_grad, or train with packed_tail=False")
                 tm = next(t for t in (16, 8, 4, 2, 1) if h % t == 0 and (h // 2) % t == 0)
                 y, s1, s2 = packed_up_kernel(x.to(self.dtype).contiguous(), wt, self.conv.bias,
                                              f=f, tm=tm, with_stats=True)

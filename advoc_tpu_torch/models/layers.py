@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels.conv_bias_act import conv_bias_act_kernel
 from advoc_tpu_torch.ops.kernels.group_norm import (
     activate,
@@ -71,8 +72,7 @@ def group_norm_act(x: Tensor, norm: GroupNorm, act: str) -> Tensor:
     training step's generator update), run ``norm`` and the activation.
     """
     params = (norm.weight, norm.bias)
-    if x.is_cuda and not (torch.is_grad_enabled()
-                          and any(t.requires_grad for t in (x, *params))):
+    if x.is_cuda and not _build.records((x, *params)):
         if x.dtype != norm.dtype:
             raise ValueError(f"group_norm_act: the kernel writes x's dtype {x.dtype}, the norm "
                              f"{norm.dtype}")
@@ -198,9 +198,7 @@ def conv_transpose_act(x: Tensor, conv: nn.ConvTranspose1d, dtype: torch.dtype, 
     bit-equal to the ops below. A CPU tensor, and a CUDA one under autograd
     (the kernel has no backward), run :func:`conv_transpose_same`, the
     activation and the cast."""
-    params = (conv.weight, conv.bias)
-    if x.is_cuda and not (torch.is_grad_enabled()
-                          and any(t.requires_grad for t in (x, *params))):
+    if x.is_cuda and not _build.records((x, conv.weight, conv.bias)):
         padding, extra, ((cut_lo, cut_hi),) = transpose_geometry(conv.kernel_size, conv.stride)
         y = _conv(F.conv_transpose1d, x, conv, dtype, bias=False, stride=conv.stride,
                   padding=padding, output_padding=extra)

@@ -1,26 +1,39 @@
-"""Build the CUDA sources under ``advoc_tpu_torch/csrc`` and load them.
+"""Build, load and launch the CUDA sources under ``advoc_tpu_torch/csrc``,
+and choose for each call which implementation of a hand-written kernel runs.
 
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a shared
-library with a plain C interface and loaded with ``ctypes``. The library goes
-into ``advoc_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
-keyed by a hash of the sources and the compile command, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Only the repository's own
-sources are built. :func:`check` turns a launch's error code into an
-exception; :func:`refuse_grad` refuses a call that autograd would record
-through a kernel without a backward; :func:`traced` tells a wrapper to call
-its registered operator (:mod:`.registered`) instead of launching.
+library with a plain C interface, loaded with ``ctypes``, into
+``advoc_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
+a hash of the sources and the compile command: an edited source is rebuilt.
+
+A kernel is wired in by two declarations in its module, and nowhere else: a
+:class:`Library` (the source, its entry points' argument types, the key its
+launches are counted under in :data:`launches`; built and loaded at its
+first launch) and a :func:`kernel` (its plain PyTorch version, its launch,
+its registered operator, :mod:`.registered`, and whether it stands for a
+Pallas kernel of the JAX package). A call goes, in this order:
+
+1. while traced (:func:`traced`), to the registered operator; inside
+   :func:`plain_when_traced` a kernel that stands for no Pallas kernel
+   traces as its plain version instead;
+2. on the CPU, to the plain version;
+3. on the card, to a refusal where autograd would record the call
+   (:func:`records`: no kernel has a backward, so the gradient would stop
+   there silently), else to the launch.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -31,9 +44,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-
-_lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+PTR, INT, INT64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+launches: collections.Counter = collections.Counter()  # by each Library's counter key
+_plain_traced = False
 
 
 def _nvcc() -> str:
@@ -82,42 +95,120 @@ def build(name: str) -> Path:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            lib.error_string.argtypes = [ctypes.c_int]
-            lib.error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
-        return lib
+def bind(lib: ctypes.CDLL, **entries: list) -> dict:
+    """Each of ``entries`` (name → argument types before the stream) and
+    ``error_string`` of ``lib``, typed, by name."""
+    lib.error_string.argtypes = [INT]
+    lib.error_string.restype = ctypes.c_char_p
+    for entry, args in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [*args, PTR]
+        fn.restype = INT
+    return {e: getattr(lib, e) for e in (*entries, "error_string")}
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point returned a nonzero ``cudaGetLastError()``.
-    Every library exports ``error_string(code)`` for the message."""
-    if code != 0:
-        msg = lib.error_string(code).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+class Library:
+    """``csrc/<name>.cu``: each call of an entry point adds ``per_call``
+    kernels to ``launches[counter]``; ``entries``: entry point → its argument
+    types. Every entry point takes the stream last (left out here) and
+    returns ``cudaGetLastError()``. Loaded at the first launch."""
+
+    def __init__(self, name: str, counter: str, per_call: int = 1, **entries: list):
+        self.name, self.counter, self.per_call, self.entries = name, counter, per_call, entries
+        self._fns: dict | None = None  # :func:`bind`'s, at the first launch
+
+    def _load(self) -> dict:
+        """Built first if needed (:func:`build` is safe to race)."""
+        self._fns = bind(ctypes.CDLL(str(build(self.name))), **self.entries)
+        return self._fns
+
+    def launch(self, device: torch.device, entry: str, *args) -> None:
+        """Launch ``entry`` once on ``device``'s current raw stream, the device
+        made current only where it is not; raise on a nonzero code; count."""
+        fns = self._fns or self._load()
+        index = device.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if index == torch.cuda.current_device():
+            code = fns[entry](*args, stream)
+        else:  # the launchers launch on the current device
+            with torch.cuda.device(index):
+                code = fns[entry](*args, stream)
+        if code:
+            raise _failed(fns, entry, code)
+        launches[self.counter] += self.per_call
+
+    def on(self, device: torch.device) -> Callable[..., None]:
+        """:meth:`launch` for a loop of launches (G-L's 2·n_iters + 1):
+        ``go(entry, *args)``, with the stream and the device read once here,
+        costs one frame a launch."""
+        fns = self._fns or self._load()
+        index = device.index
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        switch = index != torch.cuda.current_device()
+        counter, per_call = self.counter, self.per_call
+
+        def go(entry: str, *args) -> None:
+            if switch:
+                with torch.cuda.device(index):
+                    code = fns[entry](*args, stream)
+            else:
+                code = fns[entry](*args, stream)
+            if code:
+                raise _failed(fns, entry, code)
+            launches[counter] += per_call
+
+        return go
 
 
-def refuse_grad(tensors, kernel: str, instead: str) -> None:
-    """Raise ``NotImplementedError`` when grad is enabled and any of
-    ``tensors`` (a tensor or a list) requires it: ``kernel`` has no backward
-    (no more than the JAX package's Pallas kernel, which has no
-    ``custom_vjp``), so the gradient would stop there without an error.
-    ``instead`` names the differentiable path to use."""
-    tensors = [tensors] if isinstance(tensors, torch.Tensor) else tensors
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{kernel} runs a CUDA kernel that has no backward: call it under no_grad or "
-            f"on tensors that need no gradient, or differentiate {instead}")
+def _failed(fns: dict, entry: str, code: int) -> RuntimeError:
+    return RuntimeError(f"{entry} failed: CUDA error {code} ({fns['error_string'](code).decode()})")
+
+
+def kernel(name: str, *, plain: Callable, launch: Callable, op: Callable, pallas: bool,
+           instead: str) -> Callable:
+    """A kernel's dispatch by the rule above: the function its wrapper calls
+    with its arguments, the first the tensor whose device decides.
+    ``plain``, ``launch`` and ``op`` (the call of its registered operator)
+    take those arguments; ``pallas`` is a constant of the kernel; ``name``
+    and ``instead`` (the differentiable path) word the refusal."""
+
+    def dispatch(*args):
+        if torch.compiler.is_compiling():
+            return op(*args) if pallas or not _plain_traced else plain(*args)
+        if not args[0].is_cuda:
+            return plain(*args)
+        if torch.is_grad_enabled() and records(args):
+            raise NotImplementedError(
+                f"{name} runs a CUDA kernel that has no backward: call it under no_grad or on "
+                f"tensors that need no gradient, or differentiate {instead}")
+        return launch(*args)
+
+    return dispatch
+
+
+def records(tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` (tensors or tuples
+    of them; anything else is skipped): grad on and one requires it."""
+    return torch.is_grad_enabled() and any(
+        records(t) if isinstance(t, tuple) else isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tensors)
 
 
 def traced() -> bool:
-    """True while the caller is traced (``torch.export``, ``torch.compile``;
-    ``torch.compiler.is_compiling()`` reports both): a wrapper then calls
-    its ``torch.ops.advoc`` operator, which a trace can record, instead of
-    a ctypes launch."""
+    """True while the caller is traced (``torch.export``, ``torch.compile``):
+    a trace records an operator, never a ctypes launch."""
     return torch.compiler.is_compiling()
+
+
+@contextlib.contextmanager
+def plain_when_traced():
+    """Inside, a traced :func:`kernel` that stands for no Pallas kernel (the
+    U-Net's GroupNorm, WaveGAN's epilogue) records its plain aten ops, so a
+    program traced on the card loads without the operators (``export_vocoder``
+    without ``allow_custom_calls``). Eager calls still launch."""
+    global _plain_traced
+    before, _plain_traced = _plain_traced, True
+    try:
+        yield
+    finally:
+        _plain_traced = before

@@ -23,18 +23,12 @@ GB, 0.78 ms at 3.35 TB/s.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
-import functools
-
 import torch
 
 from advoc_tpu_torch.ops.kernels import _build
-from advoc_tpu_torch.ops.kernels.group_norm import ACTS, activate
+from advoc_tpu_torch.ops.kernels.group_norm import ACTS, DTYPES, activate
 
 Tensor = torch.Tensor
-
-DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # the kernel's codes 0, 1, 2
 
 
 def conv_bias_act_plain(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act: str,
@@ -78,13 +72,8 @@ def _check(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act: str,
     return length
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("conv_bias_act")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.conv_bias_act.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, p]
-    lib.conv_bias_act.restype = i
-    return lib
+_LIB = _build.Library("conv_bias_act", "conv_bias_act",
+                      conv_bias_act=[_build.PTR] * 3 + [_build.INT64] + [_build.INT] * 7)
 
 
 def conv_bias_act_kernel(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act: str,
@@ -93,39 +82,38 @@ def conv_bias_act_kernel(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act:
     ``out_dtype``: a new contiguous (B, C, L) tensor from cuDNN's un-biased
     transposed-convolution output ``y`` (B, C, L_full) in bf16, f16 or f32
     and its ``bias`` (C,) in y's dtype; ``act`` ``"relu"`` or
-    ``"leaky_relu"`` (slope 0.2); ``out_dtype`` y's dtype or float32.
+    ``"leaky_relu"`` (slope 0.2); ``out_dtype`` y's dtype or float32. Raises
+    on what the kernel does not take (another dtype or layout, L not a
+    multiple of 8, a bias of another length, dtype or device; on the card y
+    not 16-byte aligned). By ``_build``'s rule: one launch on the card
+    (``launches["conv_bias_act"]``), bit-equal to
+    :func:`conv_bias_act_plain`, which runs on the CPU;
+    ``advoc::conv_bias_act`` traced; it stands for no Pallas kernel."""
+    _check(y, bias, cut_lo, cut_hi, act, out_dtype)
+    return _KERNEL(y, bias, cut_lo, cut_hi, act, out_dtype)
 
-    On a CUDA tensor: one launch of the CUDA kernel on y's device and its
-    current stream, counted in ``conv_bias_act_kernel.launches``, bit-equal
-    to :func:`conv_bias_act_plain`; it raises on what the kernel does not
-    take (another dtype or layout, y not 16-byte aligned, L not a multiple
-    of 8, a bias of another length, dtype or device) or a failed launch, and
-    under autograd (no backward). On a CPU tensor: the same checks, then
-    :func:`conv_bias_act_plain`.
-    """
-    length = _check(y, bias, cut_lo, cut_hi, act, out_dtype)
-    if not y.is_cuda:
-        return conv_bias_act_plain(y, bias, cut_lo, cut_hi, act, out_dtype)
-    _build.refuse_grad([y, bias], "conv_bias_act_kernel",
-                       "conv_bias_act_plain (models.layers.conv_transpose_act takes it)")
+
+def _op(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act: str,
+        out_dtype: torch.dtype) -> Tensor:
+    from advoc_tpu_torch.ops.kernels import registered
+
+    return registered.conv_bias_act_op(y, bias, cut_lo, cut_hi, act, out_dtype)
+
+
+def _launch(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act: str,
+            out_dtype: torch.dtype) -> Tensor:
+    """The kernel on a CUDA tensor that :func:`_check` passed."""
     if y.data_ptr() % 16:
         raise ValueError("conv_bias_act_kernel needs y 16-byte aligned")
     b, c, lf = y.shape
-    dev = y.device
-    out = torch.empty((b, c, length), dtype=out_dtype, device=dev)
-    lib = _lib()
-    # The launcher launches on the current device.
-    on_dev = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-              else torch.cuda.device(dev))
-    with on_dev:
-        code = lib.conv_bias_act(
-            y.data_ptr(), bias.data_ptr(), out.data_ptr(), b * c, c, lf, length, cut_lo,
-            ACTS.index(act), DTYPES.index(y.dtype), int(out_dtype != y.dtype),
-            torch._C._cuda_getCurrentRawStream(dev.index),
-        )
-    _build.check(lib, code, "conv_bias_act")
-    conv_bias_act_kernel.launches += 1
+    length = lf - cut_lo - cut_hi
+    out = torch.empty((b, c, length), dtype=out_dtype, device=y.device)
+    _LIB.launch(y.device, "conv_bias_act", y.data_ptr(), bias.data_ptr(), out.data_ptr(), b * c,
+                c, lf, length, cut_lo, ACTS.index(act), DTYPES.index(y.dtype),
+                int(out_dtype != y.dtype))
     return out
 
 
-conv_bias_act_kernel.launches = 0
+_KERNEL = _build.kernel("conv_bias_act_kernel", plain=conv_bias_act_plain, launch=_launch, op=_op,
+                        pallas=False,
+                        instead="conv_bias_act_plain (models.layers.conv_transpose_act takes it)")

@@ -39,7 +39,6 @@ ceiling of ≈ 0.32 ms for this form.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -177,49 +176,41 @@ def fused_melspec_plain(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Te
     return _normalize(mel, params).reshape(lead + (n, params.n_mels))
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("featurizer")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_melspec.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, f, p]
-    lib.fused_melspec.restype = i
-    return lib
+_LIB = _build.Library("featurizer", "fused_melspec",
+                      fused_melspec=[_build.PTR] * 6 + [_build.INT] * 4 + [_build.FLOAT] * 3)
 
 
 def fused_melspec_kernel(wav: Tensor, params: AudioParams = DEFAULT_PARAMS) -> Tensor:
     """(..., L) float32 waveform → (..., L//hop, n_mels) normalized mel.
 
-    On a CUDA tensor: the CUDA kernel, one launch on the tensor's device and
-    its current stream,
-    counted in ``fused_melspec_kernel.launches``; it raises on a tensor or
-    AudioParams the kernel does not take, or a failed launch (a hop above
-    736, whose audio window would not fit in shared memory, fails so). The
-    kernel has no backward (nor has the Pallas kernel, which has no
-    ``custom_vjp``), so under grad a ``wav`` that requires grad raises
-    rather than lose its gradient: differentiate the STFT path
-    (``spectral.waveform_to_r9y9_melspec(impl="xla")``). On a CPU tensor: the
-    plain version, :func:`fused_melspec_plain`, differentiable. Traced
-    (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
-    registered operator ``advoc::fused_melspec``.
-    """
+    By ``_build``'s rule: on the card one launch
+    (``launches["fused_melspec"]``), raising on a tensor or AudioParams the
+    kernel does not take or a failed launch (a hop above 736, whose audio
+    window would not fit in shared memory); under grad a ``wav`` that
+    requires it raises (no backward, nor has the Pallas kernel):
+    differentiate ``waveform_to_r9y9_melspec(impl="xla")``. On the CPU
+    :func:`fused_melspec_plain`, differentiable; traced
+    ``advoc::fused_melspec``."""
     _check(wav, params)
-    hop, (lead, length) = params.hop_length, (wav.shape[:-1], wav.shape[-1])
-    if _build.traced():
-        from advoc_tpu_torch.ops.kernels import registered
+    return _KERNEL(wav, params)
 
-        out = registered.fused_melspec_op(wav.reshape(-1, length).contiguous(),
-                                          registered.params_list(params))
-        return out.reshape(lead + out.shape[1:])
-    if not wav.is_cuda:
-        return fused_melspec_plain(wav, params)
-    _build.refuse_grad(wav, "fused_melspec_kernel", 'the STFT path, impl="xla"')
-    out = _launch(wav.reshape(-1, length).contiguous(), params)
+
+def _by_rows(fn, wav: Tensor, params: AudioParams) -> Tensor:
+    """``fn`` of a contiguous (B, L) tensor applied to (..., L) ``wav``."""
+    lead, length = wav.shape[:-1], wav.shape[-1]
+    out = fn(wav.reshape(-1, length).contiguous(), params)
     return out.reshape(lead + out.shape[1:])
 
 
+def _op(wav: Tensor, params: AudioParams) -> Tensor:
+    from advoc_tpu_torch.ops.kernels import registered
+
+    return _by_rows(lambda x, p: registered.fused_melspec_op(x, registered.params_list(p)), wav,
+                    params)
+
+
 def _launch(x: Tensor, params: AudioParams) -> Tensor:
-    """The kernel on a contiguous (B, L) CUDA tensor (``advoc::fused_melspec``'s
-    CUDA implementation, and the eager wrapper's)."""
+    """The kernel on a contiguous (B, L) CUDA tensor."""
     if x.dtype != torch.float32:
         raise ValueError("fused_melspec_kernel needs a float32 waveform")
     if params.n_mels > 80:
@@ -230,15 +221,12 @@ def _launch(x: Tensor, params: AudioParams) -> Tensor:
         raise ValueError("fused_melspec_kernel indexes with 32-bit offsets")
     consts = _tc_consts_on(params, x.device)
     out = torch.empty((b, n, params.n_mels), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):  # the launcher launches on the current device
-        code = _lib().fused_melspec(
-            x.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(),
-            b, length, hop, params.n_mels, params.amp_floor, params.ref_level_db,
-            params.min_level_db, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(_lib(), code, "fused_melspec")
-    fused_melspec_kernel.launches += 1
+    _LIB.launch(x.device, "fused_melspec", x.data_ptr(), *(c.data_ptr() for c in consts),
+                out.data_ptr(), b, length, hop, params.n_mels, params.amp_floor,
+                params.ref_level_db, params.min_level_db)
     return out
 
 
-fused_melspec_kernel.launches = 0
+_KERNEL = _build.kernel("fused_melspec_kernel", plain=fused_melspec_plain,
+                        launch=functools.partial(_by_rows, _launch), op=_op, pallas=True,
+                        instead='the STFT path, impl="xla"')

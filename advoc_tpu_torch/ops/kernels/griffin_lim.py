@@ -57,7 +57,6 @@ three times at the 495 TFLOP/s TF32 rate, a ceiling of ≈25 ms for the
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -254,26 +253,12 @@ def griffin_lim_plain(
     return synth(re, im)[:, pad_blocks : pad_blocks + t].reshape(b, t * hop)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("griffin_lim")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gl_synth_ola.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.gl_synth_ola.restype = i
-    lib.gl_analyze_project.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, p]
-    lib.gl_analyze_project.restype = i
-    return lib
-
-
-@functools.lru_cache(maxsize=1)
-def _lib_tc() -> ctypes.CDLL:
-    lib = _build.load("griffin_lim_tc")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gl_tc_synth.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.gl_tc_synth.restype = i
-    lib.gl_tc_analyze.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float, p]
-    lib.gl_tc_analyze.restype = i
-    return lib
+_LIB = _build.Library("griffin_lim", "griffin_lim",
+                      gl_synth_ola=[_build.PTR] * 5 + [_build.INT] * 4,
+                      gl_analyze_project=[_build.PTR] * 7 + [_build.INT] * 4 + [_build.FLOAT])
+_LIB_TC = _build.Library("griffin_lim_tc", "griffin_lim_tc",
+                         gl_tc_synth=[_build.PTR] * 5 + [_build.INT] * 6,
+                         gl_tc_analyze=[_build.PTR] * 10 + [_build.INT] * 5 + [_build.FLOAT])
 
 
 def _pad64(n: int) -> int:
@@ -349,19 +334,16 @@ def _carry(x: Tensor, b: int, t: int, fp: int, dtype: torch.dtype) -> Tensor:
     return out
 
 
-def _fp32_synth(re: Tensor, im: Tensor, y: Tensor, n_bins: int, b: int, t: int,
+def _fp32_synth(go, re: Tensor, im: Tensor, y: Tensor, n_bins: int, b: int, t: int,
                 params: AudioParams) -> Tensor:
-    """One ``gl_synth_ola`` launch: the f32 (3 + B(T+3), F_pad) carries
-    ``re`` and ``im`` → ``y``, (B(T+3), hop_pad) f32; returns ``y``."""
-    lib = _lib()
+    """One ``gl_synth_ola`` launch by ``go`` (the fp32 library's launcher):
+    the f32 (3 + B(T+3), F_pad) carries ``re`` and ``im`` → ``y``,
+    (B(T+3), hop_pad) f32; returns ``y``."""
     ws, _ = _tf32_maps(params, n_bins, re.device)
     hp = y.shape[-1]
     norm = _norm(params, t, hp, re.device)
-    code = lib.gl_synth_ola(re.data_ptr(), im.data_ptr(), ws.data_ptr(), norm.data_ptr(),
-                            y.data_ptr(), b, t, re.shape[-1], hp,
-                            torch.cuda.current_stream(re.device).cuda_stream)
-    _build.check(lib, code, "gl_synth_ola")
-    griffin_lim_kernel.launches += 1
+    go("gl_synth_ola", re.data_ptr(), im.data_ptr(), ws.data_ptr(), norm.data_ptr(), y.data_ptr(),
+       b, t, re.shape[-1], hp)
     return y
 
 
@@ -375,23 +357,19 @@ def _blocks(y: Tensor, b: int, t: int, params: AudioParams) -> Tensor:
 def _run_fp32(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams) -> Tensor:
     b, t, f = mag.shape
     fp, hp = _pad64(f), _pad64(params.hop_length)
-    lib = _lib()
     dev = mag.device
+    go = _LIB.on(dev)
     _, wa = _tf32_maps(params, f, dev)
     re, im = (_carry(x, b, t, fp, torch.float32) for x in _init_carries(mag, init_phase))
     magp = _carry(mag, b, t, fp, torch.float32)
     pre, pim = torch.zeros_like(magp), torch.zeros_like(magp)
     y = torch.empty((b * (t + 3), hp), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for i in range(n_iters):
-        _fp32_synth(re, im, y, f, b, t, params)
-        code = lib.gl_analyze_project(
-            y.data_ptr(), wa.data_ptr(), magp.data_ptr(), pre.data_ptr(), pim.data_ptr(),
-            re.data_ptr(), im.data_ptr(), b, t, fp, hp, 0.0 if i == 0 else momentum, stream,
-        )
-        _build.check(lib, code, "gl_analyze_project")
-        griffin_lim_kernel.launches += 1
-    return _blocks(_fp32_synth(re, im, y, f, b, t, params), b, t, params)
+        _fp32_synth(go, re, im, y, f, b, t, params)
+        go("gl_analyze_project", y.data_ptr(), wa.data_ptr(), magp.data_ptr(), pre.data_ptr(),
+           pim.data_ptr(), re.data_ptr(), im.data_ptr(), b, t, fp, hp,
+           0.0 if i == 0 else momentum)
+    return _blocks(_fp32_synth(go, re, im, y, f, b, t, params), b, t, params)
 
 
 def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
@@ -399,8 +377,8 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
     b, t, f = mag.shape
     fp, hp = _pad64(f), _pad64(params.hop_length)
     m_rows = b * (t + 3)
-    lib = _lib_tc()
     dev = mag.device
+    go = _LIB_TC.on(dev)
     split_anal, split_synth = _SPLIT[mode]
     ws, wa, wa_lo = _tc_maps(params, f, dev)
     norm = _norm(params, t, hp, dev)
@@ -413,33 +391,24 @@ def _run_tc(mag: Tensor, n_iters: int, momentum: float, init_phase, params: Audi
     if not loop_final:  # the fp32 tail's spectrum: the last analysis overwrites it
         re32, im32 = _carry(re0, b, t, fp, torch.float32), _carry(im0, b, t, fp, torch.float32)
     y = torch.empty((m_rows, hp), dtype=torch.bfloat16, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def synth(out: Tensor) -> None:
-        code = lib.gl_tc_synth(
-            re.data_ptr(), im.data_ptr(), ws.data_ptr(), norm.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), int(split_synth), b, t, fp, hp, stream,
-        )
-        _build.check(lib, code, "gl_tc_synth")
-        griffin_lim_kernel.tc_launches += 1
+        go("gl_tc_synth", re.data_ptr(), im.data_ptr(), ws.data_ptr(), norm.data_ptr(),
+           out.data_ptr(), int(out.dtype == torch.float32), int(split_synth), b, t, fp, hp)
 
     for i in range(n_iters):
         synth(y)
         last = i == n_iters - 1
-        code = lib.gl_tc_analyze(
-            y.data_ptr(), wa.data_ptr(), wa_lo.data_ptr(), magp.data_ptr(), pre.data_ptr(),
-            pim.data_ptr(), re.data_ptr(), im.data_ptr(),
-            re32.data_ptr() if last and re32 is not None else None,
-            im32.data_ptr() if last and im32 is not None else None,
-            int(split_anal), b, t, fp, hp, 0.0 if i == 0 else momentum, stream,
-        )
-        _build.check(lib, code, "gl_tc_analyze")
-        griffin_lim_kernel.tc_launches += 1
+        go("gl_tc_analyze", y.data_ptr(), wa.data_ptr(), wa_lo.data_ptr(), magp.data_ptr(),
+           pre.data_ptr(), pim.data_ptr(), re.data_ptr(), im.data_ptr(),
+           re32.data_ptr() if last and re32 is not None else None,
+           im32.data_ptr() if last and im32 is not None else None,
+           int(split_anal), b, t, fp, hp, 0.0 if i == 0 else momentum)
     out = torch.empty((m_rows, hp), dtype=torch.float32, device=dev)
     if loop_final:
         synth(out)
     else:
-        _fp32_synth(re32, im32, out, f, b, t, params)
+        _fp32_synth(_LIB.on(dev), re32, im32, out, f, b, t, params)
     return _blocks(out, b, t, params)
 
 
@@ -455,54 +424,47 @@ def griffin_lim_kernel(
     """Fast G-L, (B, T, F) float32 magnitudes → (B, T·hop) waveform, in the
     loop mode :func:`loop_mode` picks from ``precision`` and ``loop_dtype``.
 
-    On a CUDA tensor: ``"float32"`` runs the fp32 kernels of
-    ``csrc/griffin_lim.cu`` (3xTF32), 2·n_iters + 1 launches counted in
-    ``griffin_lim_kernel.launches``; each bf16 mode runs the tensor-core
-    kernels of ``csrc/griffin_lim_tc.cu``, counted in
-    ``griffin_lim_kernel.tc_launches``: 2·n_iters + 1 for T ≤ 256 without
-    ``init_phase``, else 2·n_iters and one fp32 ``gl_synth_ola`` (counted in
-    ``launches``). All launch on ``mag``'s device, on its current stream; the wrapper raises on a
-    tensor the kernels do not take or a failed launch. The kernels have no
-    backward (nor has the Pallas kernel), so under grad a ``mag`` or
-    ``init_phase`` that requires grad raises rather than lose its
-    gradient. On a CPU tensor: the plain version, :func:`griffin_lim_plain`.
-    Traced (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
-    registered operator ``advoc::griffin_lim``.
-    """
+    By ``_build``'s rule, on the card: ``"float32"`` runs the fp32 kernels
+    of ``csrc/griffin_lim.cu`` (3xTF32), 2·n_iters + 1 launches in
+    ``launches["griffin_lim"]``; each bf16 mode the tensor-core kernels of
+    ``csrc/griffin_lim_tc.cu`` (``launches["griffin_lim_tc"]``): 2·n_iters
+    + 1 for T ≤ 256 without ``init_phase``, else 2·n_iters and one fp32
+    ``gl_synth_ola``. It raises on a tensor the kernels do not take, a
+    failed launch, or a ``mag`` or ``init_phase`` that requires grad under
+    grad (no backward, nor has the Pallas kernel). On the CPU
+    :func:`griffin_lim_plain`; traced ``advoc::griffin_lim``."""
     _check_shapes(mag, params)
-    mode = loop_mode(precision, loop_dtype)
-    if _build.traced():
-        from advoc_tpu_torch.ops.kernels import registered
+    return _KERNEL(mag, n_iters, momentum, init_phase, params, loop_mode(precision, loop_dtype))
 
-        cos0 = sin0 = None
-        if init_phase is not None:
-            cos0, sin0 = (torch.broadcast_to(p.to(mag), mag.shape).contiguous()
-                          for p in init_phase)
-        return registered.griffin_lim_op(mag.contiguous(), cos0, sin0, n_iters, momentum, mode,
-                                         registered.params_list(params))
-    if not mag.is_cuda:
-        return griffin_lim_plain(mag, n_iters, momentum, init_phase, params, loop_dtype=mode)
-    _build.refuse_grad([mag, *(init_phase or ())], "griffin_lim_kernel",
-                'spectral.griffin_lim(fft_impl="matmul")')
-    return _launch(mag, n_iters, momentum, init_phase, params, mode)
+
+def _plain(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
+           mode: str) -> Tensor:
+    return griffin_lim_plain(mag, n_iters, momentum, init_phase, params, loop_dtype=mode)
+
+
+def _op(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
+        mode: str) -> Tensor:
+    from advoc_tpu_torch.ops.kernels import registered
+
+    cos0 = sin0 = None
+    if init_phase is not None:
+        cos0, sin0 = (torch.broadcast_to(p.to(mag), mag.shape).contiguous() for p in init_phase)
+    return registered.griffin_lim_op(mag.contiguous(), cos0, sin0, n_iters, momentum, mode,
+                                     registered.params_list(params))
 
 
 def _launch(mag: Tensor, n_iters: int, momentum: float, init_phase, params: AudioParams,
             mode: str) -> Tensor:
-    """The kernels of ``mode`` on a CUDA tensor (``advoc::griffin_lim``'s
-    CUDA implementation, and the eager wrapper's)."""
+    """The kernels of ``mode`` on a CUDA tensor."""
     if mag.dtype != torch.float32 or not mag.is_contiguous():
         raise ValueError("griffin_lim_kernel needs a contiguous float32 tensor")
     b, t, _ = mag.shape
     if -(-(b * (t + 3)) // 128) > 65535:  # both libraries' grid y limit, 128 rows a CTA
         raise ValueError("griffin_lim_kernel: too many rows for one launch")
-    # The launchers set their shared-memory attribute and launch on the
-    # current device: make it the tensor's.
-    with torch.cuda.device(mag.device):
-        if mode == "float32":
-            return _run_fp32(mag, n_iters, momentum, init_phase, params)
-        return _run_tc(mag, n_iters, momentum, init_phase, params, mode)
+    if mode == "float32":
+        return _run_fp32(mag, n_iters, momentum, init_phase, params)
+    return _run_tc(mag, n_iters, momentum, init_phase, params, mode)
 
 
-griffin_lim_kernel.launches = 0
-griffin_lim_kernel.tc_launches = 0
+_KERNEL = _build.kernel("griffin_lim_kernel", plain=_plain, launch=_launch, op=_op, pallas=True,
+                        instead='spectral.griffin_lim(fft_impl="matmul")')

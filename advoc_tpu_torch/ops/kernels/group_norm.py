@@ -30,8 +30,6 @@ levels); a level of at most 50 MB is read the second time from L2.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import functools
 
 import torch
@@ -129,76 +127,38 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("group_norm")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.group_norm_act.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.group_norm_act.restype = i
-    return lib
+_LIB = _build.Library("group_norm", "group_norm_act", per_call=2,
+                      group_norm_act=[_build.PTR] * 6 + [_build.INT] * 8)
 
 
 def group_norm_act_kernel(x: Tensor, weight: Tensor, bias: Tensor, groups: int,
                           act: str) -> Tensor:
     """act(GroupNorm(x)) of a (B, C, H, W) ``x`` in bf16, f16 or f32,
     channels-last or contiguous NCHW, in x's dtype and layout; ``weight``
-    and ``bias`` (C,).
-
-    On a CUDA tensor: the CUDA kernel's two launches on x's device and its
-    current stream, counted in ``group_norm_act_kernel.launches``; it raises
-    on a tensor the kernel does not take (C % 8, C % groups, C above 2048,
-    another dtype or layout) or a failed launch. On a CPU tensor:
-    :func:`group_norm_act_plain`. Traced
-    (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
-    registered operator ``advoc::group_norm_act``, or the plain version's
-    aten ops inside :func:`plain_when_traced`. No backward: under autograd
-    it raises on the card, where the plain version is the path.
-    """
-    traced = _build.traced()
-    if x.is_cuda and not traced:
-        _build.refuse_grad([x, weight, bias], "group_norm_act_kernel",
-                           "group_norm_act_plain (models.layers.group_norm_act takes it)")
-        return _launch(x, weight, bias, groups, act)[0]
+    and ``bias`` (C,). Raises on a tensor the kernel does not take (C % 8,
+    C % groups, C above 2048, another dtype or layout). By ``_build``'s
+    rule: two launches on the card (``launches["group_norm_act"]``),
+    :func:`group_norm_act_plain` on the CPU, ``advoc::group_norm_act``
+    traced; it stands for no Pallas kernel."""
     _check(x, weight, bias, groups, act)
-    if traced and not _plain_traced:
-        from advoc_tpu_torch.ops.kernels import registered
-
-        return registered.group_norm_act_op(x, weight.to(x.device), bias.to(x.device), groups,
-                                            act)
-    return group_norm_act_plain(x, weight, bias, groups, act)
+    return _KERNEL(x, weight, bias, groups, act)
 
 
-_plain_traced = False
+def _op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> Tensor:
+    from advoc_tpu_torch.ops.kernels import registered
 
-
-@contextlib.contextmanager
-def plain_when_traced():
-    """Inside: a traced :func:`group_norm_act_kernel` records the plain
-    version's aten ops instead of ``advoc::group_norm_act``, so that a
-    program traced on the card loads without the registered operators
-    (:func:`~advoc_tpu_torch.infer.export.export_vocoder` without
-    ``allow_custom_calls``). Eager calls still launch the kernel."""
-    global _plain_traced
-    before, _plain_traced = _plain_traced, True
-    try:
-        yield
-    finally:
-        _plain_traced = before
+    return registered.group_norm_act_op(x, weight.to(x.device), bias.to(x.device), groups, act)
 
 
 def _launch(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str):
-    """The kernel on a CUDA tensor (``advoc::group_norm_act``'s CUDA
-    implementation, and the eager wrapper's): (y, scratch), the first
-    2·B·G floats of scratch the f32 (mean, inv) of each (sample, group)
-    that the normalise pass used.
-
-    It runs once a U-Net level, on the host's critical path where the card
-    outruns the host (small batches), so it spends no host time it need
-    not: no device switch where x's card is current, the raw current
-    stream, no view of the statistics."""
-    nhwc = _check(x, weight, bias, groups, act)
+    """The kernel on a CUDA tensor that :func:`_check` passed: (y,
+    scratch), the first 2·B·G floats of scratch the f32 (mean, inv) of each
+    (sample, group) that the normalise pass used. It runs once a U-Net
+    level, on the host's critical path at small batches: no view of the
+    statistics."""
     if x.data_ptr() % 16:
         raise ValueError("group_norm_act_kernel needs x 16-byte aligned")
+    nhwc = x.stride(1) == 1  # channels-last: _check passed, so C >= 8
     b, c, h, w = x.shape
     dev = x.device
     units, unit_vectors = (b, h * w * c // 8) if nhwc else (b * groups, (c // groups) * h * w // 8)
@@ -210,20 +170,12 @@ def _launch(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str):
                           dtype=torch.float32, device=dev)
     wf = weight.to(dev, torch.float32).contiguous()
     bf = bias.to(dev, torch.float32).contiguous()
-    lib = _lib()
-    # The launcher launches on the current device.
-    on_dev = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-              else torch.cuda.device(dev))
-    with on_dev:
-        code = lib.group_norm_act(
-            x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
-            scratch.data_ptr() + 4 * n_stats, scratch.data_ptr(), b, c, h * w, groups,
-            int(nhwc), ACTS.index(act), nt, DTYPES.index(x.dtype),
-            torch._C._cuda_getCurrentRawStream(dev.index),
-        )
-    _build.check(lib, code, "group_norm_act")
-    group_norm_act_kernel.launches += 2
+    _LIB.launch(dev, "group_norm_act", x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
+                scratch.data_ptr() + 4 * n_stats, scratch.data_ptr(), b, c, h * w, groups,
+                int(nhwc), ACTS.index(act), nt, DTYPES.index(x.dtype))
     return y, scratch
 
 
-group_norm_act_kernel.launches = 0
+_KERNEL = _build.kernel("group_norm_act_kernel", plain=group_norm_act_plain,
+                        launch=lambda *args: _launch(*args)[0], op=_op, pallas=False,
+                        instead="group_norm_act_plain (models.layers.group_norm_act takes it)")

@@ -34,9 +34,6 @@ operations.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -113,13 +110,7 @@ def _class_weights(wt: Tensor, f: int, cp: int) -> Tensor:
     return w6.reshape(4, npad, 4 * cp).to(torch.bfloat16).contiguous()
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("packed_up")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.packed_up.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.packed_up.restype = i
-    return lib
+_LIB = _build.Library("packed_up", "packed_up", packed_up=[_build.PTR] * 8 + [_build.INT] * 7)
 
 
 def packed_up_kernel(
@@ -128,30 +119,29 @@ def packed_up_kernel(
     """Fused k4/s2 transpose-conv → packed (B, 2H, W, 2f) bf16 (+ Σy, Σy²).
 
     x (B, H, W, cin) bf16, wt (4, 4, cin, f) in flax layout, bias (f,);
-    the JAX ``packed_up`` signature. On a CUDA tensor: the CUDA kernel, one
-    call on x's device and its current stream (the conv launch and, with ``with_stats``,
-    the partials' reduction), counted in ``packed_up_kernel.launches``; it
-    raises on a tensor the kernel does not take or a failed launch. On a
-    CPU tensor: the plain version in bf16, :func:`packed_up_plain`. Traced
-    (:func:`~advoc_tpu_torch.ops.kernels._build.traced`), it is the
-    registered operator ``advoc::packed_up``.
-    """
+    the JAX ``packed_up`` signature. By ``_build``'s rule: on the card one
+    call (the conv launch and, with ``with_stats``, the partials'
+    reduction; ``launches["packed_up"]``), raising on a tensor the kernel
+    does not take, a failed launch, or under autograd (no backward, nor has
+    the Pallas kernel); on the CPU :func:`packed_up_plain` in bf16; traced
+    ``advoc::packed_up``."""
     _check(x, wt, bias, f, tm)
-    if _build.traced():
-        from advoc_tpu_torch.ops.kernels import registered
+    return _KERNEL(x, wt, bias, f, tm, with_stats)
 
-        y, s1, s2 = registered.packed_up_op(x, wt.to(x.device), bias.to(x.device), f, tm,
-                                            with_stats)
-        return (y, s1, s2) if with_stats else y
-    if not x.is_cuda:
-        return packed_up_plain(x.to(torch.bfloat16), wt, bias, f=f, tm=tm,
-                               with_stats=with_stats)
-    return _launch(x, wt, bias, f, tm, with_stats)
+
+def _plain(x: Tensor, wt: Tensor, bias: Tensor, f: int, tm: int, with_stats: bool):
+    return packed_up_plain(x.to(torch.bfloat16), wt, bias, f=f, tm=tm, with_stats=with_stats)
+
+
+def _op(x: Tensor, wt: Tensor, bias: Tensor, f: int, tm: int, with_stats: bool):
+    from advoc_tpu_torch.ops.kernels import registered
+
+    y, s1, s2 = registered.packed_up_op(x, wt.to(x.device), bias.to(x.device), f, tm, with_stats)
+    return (y, s1, s2) if with_stats else y
 
 
 def _launch(x: Tensor, wt: Tensor, bias: Tensor, f: int, tm: int, with_stats: bool):
-    """The kernel on a CUDA tensor (``advoc::packed_up``'s CUDA
-    implementation, and the eager wrapper's)."""
+    """The kernel on a CUDA tensor."""
     b, h, w, cin = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("packed_up_kernel needs a contiguous bfloat16 x")
@@ -161,7 +151,6 @@ def _launch(x: Tensor, wt: Tensor, bias: Tensor, f: int, tm: int, with_stats: bo
             f"(cin {cin}, f {f}, H {h}, tm {tm})"
         )
     cp = -(-cin // 64) * 64  # whole 128-byte K boxes
-    lib = _lib()
     dev = x.device
     wq = _class_weights(wt.to(dev), f, cp)
     bias_p = F.pad(bias.to(dev, torch.bfloat16), (0, wq.shape[1] - f)).contiguous()
@@ -173,15 +162,10 @@ def _launch(x: Tensor, wt: Tensor, bias: Tensor, f: int, tm: int, with_stats: bo
         # outputs may not alias each other.
         stats = [*torch.empty((2, b, n_part, 2 * f), dtype=torch.float32, device=dev),
                  *(torch.empty((b, 2 * f), dtype=torch.float32, device=dev) for _ in range(2))]
-    with torch.cuda.device(dev):  # the launcher launches on the current device
-        code = lib.packed_up(
-            x.data_ptr(), wq.data_ptr(), bias_p.data_ptr(), y.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in stats), b, h, w, cin, cp, f, tm,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "packed_up")
-    packed_up_kernel.launches += 1
+    _LIB.launch(dev, "packed_up", x.data_ptr(), wq.data_ptr(), bias_p.data_ptr(), y.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in stats), b, h, w, cin, cp, f, tm)
     return (y, stats[2], stats[3]) if with_stats else y
 
 
-packed_up_kernel.launches = 0
+_KERNEL = _build.kernel("packed_up_kernel", plain=_plain, launch=_launch, op=_op, pallas=True,
+                        instead="the same parameters with AdvocConfig(packed_tail=False)")

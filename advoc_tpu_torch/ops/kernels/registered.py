@@ -7,20 +7,21 @@ also an operator of the ``advoc`` namespace (``torch.library.custom_op``):
 * ``advoc::fused_melspec`` (B3, :mod:`.featurizer`),
 * ``advoc::packed_up`` (B4, :mod:`.packed_up`),
 * ``advoc::group_norm_act`` (the U-Net's GroupNorm + activation,
-  :mod:`.group_norm`).
+  :mod:`.group_norm`),
+* ``advoc::conv_bias_act`` (WaveGAN's bias + crop + activation,
+  :mod:`.conv_bias_act`).
 
-Each operator's CUDA implementation launches the kernel (and counts the
-launch, as the eager wrapper does), its CPU implementation is the plain
-version, and its fake implementation gives the output shapes and dtypes (and
-``group_norm_act``'s strides, the input's layout) for tracing. The wrappers
-(``griffin_lim_kernel``, ``fused_melspec_kernel``, ``packed_up_kernel``,
-``group_norm_act_kernel``) call the operator only while they are traced
-(:func:`~advoc_tpu_torch.ops.kernels._build.traced`: ``torch.export``,
-``torch.compile``); eager calls launch directly, as before. An exported program that records one of these
-operators needs this module imported before ``torch.export.load``, and runs
-only on a device the operator has an implementation for (CUDA or the CPU).
-It imports torch and the port's ``ops`` only, so an artifact loads without
-any model code.
+Each operator's CUDA implementation launches the kernel (counted in
+``_build.launches``), its CPU implementation is the plain version, and its
+fake gives the output shapes and dtypes (and ``group_norm_act``'s strides)
+for tracing. ``_build``'s one rule sends a
+traced wrapper here, except that inside ``_build.plain_when_traced`` the
+two kernels that stand for no Pallas kernel (``group_norm_act``,
+``conv_bias_act``) trace as their plain aten ops. An exported program that
+records one of these operators needs this module imported before
+``torch.export.load``, and runs only on a device the operator has an
+implementation for (CUDA or the CPU). It imports torch and the port's
+``ops`` only, so an artifact loads without any model code.
 """
 
 import dataclasses
@@ -28,13 +29,19 @@ from typing import Optional
 
 import torch
 
-from advoc_tpu_torch.ops.kernels import featurizer, griffin_lim, group_norm, packed_up
+from advoc_tpu_torch.ops.kernels import (
+    conv_bias_act,
+    featurizer,
+    griffin_lim,
+    group_norm,
+    packed_up,
+)
 from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
 
 Tensor = torch.Tensor
 
 NAMESPACE = "advoc"
-OPS = ("griffin_lim", "fused_melspec", "packed_up", "group_norm_act")
+OPS = ("griffin_lim", "fused_melspec", "packed_up", "group_norm_act", "conv_bias_act")
 
 
 def params_list(params: AudioParams) -> list[float]:
@@ -132,6 +139,7 @@ def _no_stats(x: Tensor) -> tuple[Tensor, Tensor]:
 @torch.library.custom_op("advoc::group_norm_act", mutates_args=(), device_types="cuda")
 def group_norm_act_op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> Tensor:
     """act(GroupNorm(x)) in x's layout (channels-last or contiguous NCHW)."""
+    group_norm._check(x, weight, bias, groups, act)
     return group_norm._launch(x, weight, bias, groups, act)[0]
 
 
@@ -144,6 +152,27 @@ def _(x, weight, bias, groups, act):
 @group_norm_act_op.register_fake
 def _(x, weight, bias, groups, act):
     return torch.empty_like(x)
+
+
+# -- advoc::conv_bias_act ----------------------------------------------------
+
+@torch.library.custom_op("advoc::conv_bias_act", mutates_args=(), device_types="cuda")
+def conv_bias_act_op(y: Tensor, bias: Tensor, cut_lo: int, cut_hi: int, act: str,
+                     out_dtype: torch.dtype) -> Tensor:
+    """act(y + bias) cropped by (cut_lo, cut_hi), in out_dtype, contiguous."""
+    conv_bias_act._check(y, bias, cut_lo, cut_hi, act, out_dtype)
+    return conv_bias_act._launch(y, bias, cut_lo, cut_hi, act, out_dtype)
+
+
+@conv_bias_act_op.register_kernel("cpu")
+def _(y, bias, cut_lo, cut_hi, act, out_dtype):
+    return conv_bias_act.conv_bias_act_plain(y, bias, cut_lo, cut_hi, act, out_dtype)
+
+
+@conv_bias_act_op.register_fake
+def _(y, bias, cut_lo, cut_hi, act, out_dtype):
+    b, c, lf = y.shape
+    return y.new_empty((b, c, lf - cut_lo - cut_hi), dtype=out_dtype)
 
 
 def recorded(graph_module) -> list[str]:

@@ -66,7 +66,7 @@ from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator  # noqa: E4
 from advoc_tpu_torch.models.advoc.model import small_config  # noqa: E402
 from advoc_tpu_torch.models.wavegan import WaveGANConfig  # noqa: E402
 from advoc_tpu_torch.ops import spectral  # noqa: E402
-from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel  # noqa: E402
+from advoc_tpu_torch.ops.kernels import _build  # noqa: E402
 from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS as P  # noqa: E402
 from advoc_tpu_torch.utils.profiling import wait_for  # noqa: E402
 
@@ -191,15 +191,11 @@ def fmt(s: dict) -> str:
 
 
 def launches_of(fn) -> dict[str, int]:
-    """The G-L kernel wrapper's launches (fp32, tensor-core) in one call of
-    ``fn()``."""
-    def counts():
-        return {"griffin_lim": griffin_lim_kernel.launches,
-                "griffin_lim_tc": griffin_lim_kernel.tc_launches}
-
-    before = counts()
+    """The port's kernel launches in one call of ``fn()``, by library
+    (``_build.launches``, cleared first)."""
+    _build.launches.clear()
     wait_for(fn())
-    return {k: v - before[k] for k, v in counts().items()}
+    return dict(_build.launches)
 
 
 def resolve_device(name: str) -> tuple[torch.device, str, float | None]:
@@ -257,8 +253,8 @@ def main(argv=None) -> dict:
     secs = head["ms_median"] / 1e3
     xrt = audio_s / secs
     log(f"[bench] {audio_s:.1f} s audio in {fmt(head)} a batch, {K} chained calls a trial "
-        f"→ {xrt:.1f}× real time ({xrt * P.sample_rate / 1e6:.2f}M samples/s); G-L "
-        f"launches a call {launches}")
+        f"→ {xrt:.1f}× real time ({xrt * P.sample_rate / 1e6:.2f}M samples/s); "
+        f"kernel launches a call {launches}")
 
     # -- outputs checked, outside the timed window ------------------------------------
     require(tuple(out.shape) == (B, t * P.hop_length) and bool(torch.isfinite(out).all()),
@@ -315,7 +311,7 @@ def main(argv=None) -> dict:
         "power_limit_w": power_w,
         "k": K,
         "flops": flops,
-        "gl_launches_per_call": launches,
+        "launches_per_call": launches,
         "mel_l1": {graph.impl: l1_k, "matmul": l1_m},
         "streaming_small": st,
     }
@@ -374,9 +370,9 @@ def extended_panel(dev: torch.device, g: torch.nn.Module, sg: torch.nn.Module) -
     s = timed(lambda: voc(mel_long))
     launches = launches_of(lambda: voc(mel_long))
     out["cfg6_long_form"] = {**s, "x_rt": LONG_S / (s["ms_median"] / 1e3),
-                             "frames": mel_long.shape[0], "gl_launches_per_call": launches}
+                             "frames": mel_long.shape[0], "launches_per_call": launches}
     log(f"[bench:cfg6] long-form {LONG_S} s utterance ({mel_long.shape[0]} frames): {fmt(s)} → "
-        f"{out['cfg6_long_form']['x_rt']:.1f}× real time; G-L launches a call {launches}")
+        f"{out['cfg6_long_form']['x_rt']:.1f}× real time; kernel launches a call {launches}")
 
     # Config 7: multi-stream low-latency serving, pushes of small_config chunks.
     c = sg.cfg.n_frames

@@ -14,8 +14,8 @@ activation (:func:`group_norm`, at the full-width generator's 11 levels on
 (:func:`conv_bias_act`, at the five levels of wavegan-65536.gen-b256).
 Then it drives two
 paths at the full default width (random weights from a seed), each with the
-kernel counts (one per CUDA library) set to 0 just before it and read just
-after:
+kernel counts (``_build.launches``, one key per CUDA library) cleared just
+before it and read just after:
 
 * the offline ``Vocoder`` on B=128 × 256-frame mels and on one 1024-frame
   utterance (the tensor-core G-L kernel, and the fp32 synthesis for the
@@ -100,12 +100,12 @@ after:
   16 streams on gl and lws_online; ``vocode_client_torch.py`` against the
   port's server; ``projection_sweep_torch.py``, ``stoi_analysis_torch.py``
   and ``quality_ab_torch.py --steps 4``.
-* the headline benchmark (:func:`bench`, phase (n)): ``bench_torch.py`` as
-  a user runs it, a child process, then again with ``ADVOC_BENCH_FULL=1``
-  (its extended panel): each exits 0 after its own checks (finite output,
-  the kernel and matmul G-L within 2e-3 mel L1) with a result line whose
-  × real time is positive, whose mfu lies in (0, 1.05], whose device is
-  this card and whose headline call launched B1 61 times; the headline's
+* the headline benchmark (:func:`bench`, phase (n)): ``bench_torch.py``
+  with ``ADVOC_BENCH_FULL=1`` as a user runs it, a child process (the
+  headline and its extended panel): it exits 0 after its own checks (finite
+  output, the kernel and matmul G-L within 2e-3 mel L1) with a result line
+  whose × real time is positive, whose mfu lies in (0, 1.05], whose device
+  is this card and whose headline call launched B1 61 times; the headline's
   median beside phase (m)'s roofline whole call.
 
 It checks that the waveforms are right, holds the packed-tail generator to
@@ -130,10 +130,13 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from advoc_tpu_torch.ops.kernels import _build
 
 SR, HOP = 22050, 256
 
@@ -358,17 +361,17 @@ def conv_bias_act(dev) -> dict:
     return {"levels": rows, **total}
 
 
-def serving(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
+def serving(dev, gen, voc, mels, mel_l1) -> dict:
     """The serving phase: (a) StreamingVocoder, (b) the TCP server, (c)
     vocode_longform, (d) vocode_cli, each with the kernel counts set to 0
     just before it and read just after. Returns the numbers it printed."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return _serving(pathlib.Path(tmp), dev, gen, voc, mels, mel_l1, zero_counts, counts)
+        return _serving(pathlib.Path(tmp), dev, gen, voc, mels, mel_l1)
 
 
-def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
+def _serving(tmp, dev, gen, voc, mels, mel_l1) -> dict:
 
     from advoc_tpu_torch.data import audioio
     from advoc_tpu_torch.data.synthetic import synthetic_speech
@@ -398,10 +401,10 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         return StreamingVocoder(g, n_streams=n, emit_dtype="int16", device=device)
 
     sv = streaming_vocoder(sgen)
-    zero_counts()
+    _build.launches.clear()
     sig = stream(sv)
     torch.cuda.synchronize()
-    out["stream_launches"] = counts()
+    out["stream_launches"] = _build.launches.copy()
     require(sig.dtype == np.int16 and sig.shape == (n_s, n_chunks * chunk * HOP + sv.flush_samples),
             f"stream output {sig.dtype} {sig.shape}")
     assembled = sig[:, sv.flush_samples :].astype(np.float32) / 32767.0
@@ -453,10 +456,10 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
 
     # -- (b) the TCP server on the card, from a port bundle ---------------------
     export_inference_bundle(tmp / "small", sgen.state_dict(), {"model_size": "small"})
-    zero_counts()
+    _build.launches.clear()
     res = serve_main(["--selftest", "16", "--pushes", "10", "--bundle", str(tmp / "small"),
                       "--n_slots", "16", "--device", "cuda"])
-    out["server_launches"] = counts()
+    out["server_launches"] = _build.launches.copy()
     require(res["n_clients"] == 16 and res["ticks"] >= 10 and res["p50_ms"] > 0,
             f"selftest result {res}")
     out["server"] = res
@@ -486,11 +489,11 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     # At the Vocoder's own gl_precision: None is "default" (the engine's
     # matmul G-L loop with bf16 operands, JAX's DEFAULT), and "highest".
     utt = mels(1, 4096, seed=7)[0]
-    zero_counts()
+    _build.launches.clear()
     t0 = time.perf_counter()
     wav_lf = voc.vocode_longform(utt.cpu().numpy(), tile_frames=1024)
     out["longform_s"] = time.perf_counter() - t0
-    out["longform_launches"] = counts()
+    out["longform_launches"] = _build.launches.copy()
     require(voc._longform[(1024, 32)].gl_precision == "default", "longform engine precision")
     wav_b = voc(utt)
     require(wav_lf.shape == (4096 * HOP,) and np.isfinite(wav_lf).all(), "longform output")
@@ -521,17 +524,17 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
                                         (380, 250), (500, 3), (700, 40), (1000, 128))]
     for i, n in enumerate(lengths):
         audioio.save_as_wav(synthetic_speech(200 + i, n), tmp / "in" / f"u{i}.wav")
-    zero_counts()
+    _build.launches.clear()
     summary = vocode_cli.main(["--input", str(tmp / "in"), "--out_dir", str(tmp / "out"),
                                "--bundle", str(tmp / "full"), "--batch", "8"])
     torch.cuda.synchronize()
-    out["cli_launches"] = counts()
+    out["cli_launches"] = _build.launches.copy()
     require(out["cli_launches"]["griffin_lim_tc"] > 0, f"vocode_cli launches {out['cli_launches']}")
     # The Vocoder gate against the plain G-L: the same generator with the
     # fp32 matmul scan (phase_impl="xla"), which launches no kernel.
     voc_ref = Vocoder(gen, device="cuda", phase_impl="xla")
     cli_l1: list[tuple[float, float]] = []
-    zero_counts()
+    _build.launches.clear()
     for i, n in enumerate(lengths):
         got = audioio.decode_audio(tmp / "out" / f"u{i}.wav")
         frames = 1 + n // HOP
@@ -544,11 +547,11 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         require(l1_cli < 1.1 * l1_ref + 1e-3,
                 f"vocode_cli u{i}: mel L1 {l1_cli} vs matmul-scan Vocoder {l1_ref}")
     torch.cuda.synchronize()
-    got = counts()
-    gn = got.pop("group_norm_act")
+    got = _build.launches.copy()
+    gn = got.pop("group_norm_act", 0)
     require(not any(got.values()) and norm_pairs(gn, norm_levels(gen.cfg), len(lengths)),
-            f"the matmul-scan reference launched {counts()}: no kernel but the GroupNorm pair at "
-            f"each level of its {len(lengths)} generator calls")
+            f"the matmul-scan reference launched {_build.launches}: no kernel but the GroupNorm "
+            f"pair at each level of its {len(lengths)} generator calls")
     out["cli_x_realtime"] = summary["audio_s"] / summary["seconds"]
     print(f"serving (d) vocode_cli 8 wavs ({sum(lengths) / SR:.1f} s of audio), --batch 8, full "
           f"width: launches {out['cli_launches']}; exact lengths; mel L1 (CLI, matmul-scan "
@@ -557,7 +560,7 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     return out
 
 
-def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
+def lws_phases(dev, gen, voc, mels, mel_l1) -> dict:
     """The LWS slice: (e) the one-call heuristic vocoders at bench.py's config
     1, (f) the full-width Vocoder with phase_method="lws_exact", (g) the
     streaming lws engines at the serve CLI's defaults and (h) the TCP server
@@ -581,10 +584,10 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         """No port kernel launched, but the GroupNorm pairs of a generator
         of ``levels`` normalised levels where it runs one."""
         torch.cuda.synchronize()
-        got = counts()
-        gn = got.pop("group_norm_act")
+        got = _build.launches.copy()
+        gn = got.pop("group_norm_act", 0)
         require(not any(got.values()) and (norm_pairs(gn, levels, calls) if levels else gn == 0),
-                f"{what}: port kernels launched {counts()} (GroupNorm: {levels} levels, "
+                f"{what}: port kernels launched {_build.launches} (GroupNorm: {levels} levels, "
                 f"{calls} calls)")
 
     def traced(fn) -> tuple[int, float | None]:
@@ -605,7 +608,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
         def run(m=mel_b, mode=mode, n_iters=n_iters):
             return sp.r9y9_melspec_to_waveform(m, n_iters=n_iters, phase_method=mode)
 
-        zero_counts()
+        _build.launches.clear()
         wav = run()
         no_kernel(f"r9y9_melspec_to_waveform({mode!r})")
         require(tuple(wav.shape) == (32, 256 * HOP) and bool(torch.isfinite(wav).all()),
@@ -639,7 +642,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     # -- (f) the full-width Vocoder, phase_method="lws_exact", 5 sweeps -----------
     voc_lws = Vocoder(gen, device="cuda", phase_method="lws_exact", gl_iters=5)
     batch = mels(32, 256, seed=1)
-    zero_counts()
+    _build.launches.clear()
     wav = voc_lws(batch)
     no_kernel("Vocoder(phase_method='lws_exact')", norm_levels(gen.cfg), 1)
     require(tuple(wav.shape) == (32, 256 * HOP) and bool(torch.isfinite(wav).all()),
@@ -692,7 +695,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
                                     device=device, **kw)
 
         sv = engine_sv()
-        zero_counts()
+        _build.launches.clear()
         sig = np.concatenate([sv.push(c) for c in chunks] + [sv.flush()], axis=1)
         no_kernel(f"StreamingVocoder {engine}", norm_levels(sgen.cfg))
         require(sig.dtype == np.int16
@@ -763,7 +766,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lws_") as tmp:
         export_inference_bundle(pathlib.Path(tmp) / "small", sgen.state_dict(),
                                 {"model_size": "small"})
-        zero_counts()
+        _build.launches.clear()
         res = serve_main(["--selftest", "16", "--pushes", "10", "--engine", "lws_block",
                           "--bundle", str(pathlib.Path(tmp) / "small"), "--n_slots", "16",
                           "--device", "cuda"])
@@ -813,7 +816,7 @@ def changed_and_finite(state, init: dict, what: str, constant: tuple[str, ...] =
                 f"{what} {name} {'moved' if moved else 'was not updated'}")
 
 
-def training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
+def training(tmp, dev, mel_l1) -> dict:
     """Phase (i): advoc GAN training at full width (``AdvocConfig()``,
     batch 8) on 8 synthetic 4-second wavs in ``tmp/wavs``, through the
     train_evaluate CLI and the step it builds; its full-width run stays in
@@ -838,7 +841,6 @@ def training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     data = tmp / "wavs"
     ensure_dataset(None, str(data))  # synthetic_speech seeds 0-7, 4 s each
     common = ["--data_dir", str(data), "--batch_size", "8", "--device", "cuda"]
-    zeros = {name: 0 for name in counts()}
 
     def run_cli(args: list[str]):
         return run_train_cli(cli.main, args)
@@ -849,15 +851,15 @@ def training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
             for k, m in (("g", g0), ("d", d0))}
     del g0, d0
     run = tmp / "hbm"
-    zero_counts()
+    _build.launches.clear()
     (gs, ds, step), text, rows = run_cli(["--mode", "train", "--train_dir", str(run),
                                           "--data_placement", "hbm", "--max_steps", "24",
                                           "--ckpt_every", "24", "--log_every", "8", *common])
     torch.cuda.synchronize()
     # The D update runs the frozen generator under no_grad: the GroupNorm pair
     # at each level a step. The G update, under autograd, the plain GroupNorm.
-    require(counts() == {**zeros, "group_norm_act": 24 * 2 * norm_levels(cfg)},
-            f"the train step runs no port kernel but the D update's GroupNorm: {counts()}")
+    require(_build.launches == Counter({"group_norm_act": 24 * 2 * norm_levels(cfg)}),
+            f"the train step runs no port kernel but the D update's GroupNorm: {_build.launches}")
     require(step == 24 and gs.step == ds.step == 24 and "staged in device memory" in text,
             f"hbm run ended at step {step}")
     changed_and_finite(gs, init["g"], "G")
@@ -980,16 +982,16 @@ def training(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     del g, d, gs, ds
 
     # -- (i-e) eval --eval_once and infer on the hbm run ------------------------
-    zero_counts()
+    _build.launches.clear()
     seen = cli.main(["--mode", "eval", "--train_dir", str(run), "--eval_once", *common])
     torch.cuda.synchronize()
-    out["eval_launches"] = counts()
+    out["eval_launches"] = _build.launches.copy()
     require(seen == 24 and out["eval_launches"]["griffin_lim_tc"] > 0,
             f"eval evaluated step {seen} with launches {out['eval_launches']}")
-    zero_counts()
+    _build.launches.clear()
     paths = cli.main(["--mode", "infer", "--train_dir", str(run), "--device", "cuda"])
     torch.cuda.synchronize()
-    out["infer_launches"] = counts()
+    out["infer_launches"] = _build.launches.copy()
     require(len(paths) == 1 and out["infer_launches"]["griffin_lim_tc"] > 0,
             f"infer wrote {paths} with launches {out['infer_launches']}")
     y = torch.tensor(audioio.decode_audio(paths[0]), device=dev)
@@ -1081,7 +1083,7 @@ def family_draws(name: str, cfg, d, n_d: int, b: int) -> dict:
     return out
 
 
-def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
+def families(tmp, dev, mel_l1) -> dict:
     """Phase (j): the WaveGAN, conditional-WaveGAN and MelSpecGAN families at
     their published widths through their CLIs on the card, on phase (i)'s 8
     synthetic wavs (``tmp/wavs``), and the melspecgan → advoc pipeline
@@ -1102,7 +1104,6 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     from advoc_tpu_torch.utils.roofline import bound, gl_bytes, gl_flops
 
     t_start = time.perf_counter()
-    zeros = {name: 0 for name in counts()}
     common = ["--data_dir", str(tmp / "wavs"), "--device", "cuda"]
     out: dict = {}
 
@@ -1201,7 +1202,7 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
         # shift leaves the Wasserstein loss unchanged), in JAX too.
         constant = ("logit.bias",) if cfg.gan_type == "wgan-gp" else ()
         r = out[name]
-        zero_counts()
+        _build.launches.clear()
         (gs, ds, step), text, rows = run_train_cli(cli.main, [
             "--mode", "train", *args, "--max_steps", str(n_steps), "--ckpt_every",
             str(n_steps), "--log_every", "2"])
@@ -1212,8 +1213,9 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
         # The G update, under autograd, and MelSpecGAN run no port kernel.
         fakes = (0 if cli is not wcli else n_steps - r["killed_at"] if "killed_at" in r
                  else cfg.n_critic * n_steps)
-        require(counts() == {**zeros, "conv_bias_act": fakes * (cfg.n_up - 1 if fakes else 0)},
-                f"the {name} step runs no port kernel but the D update's epilogue: {counts()}")
+        require(_build.launches == Counter({"conv_bias_act": fakes and fakes * (cfg.n_up - 1)}),
+                f"the {name} step runs no port kernel but the D update's epilogue: "
+                f"{_build.launches}")
         n_d = cfg.n_critic if name != "cond_wavegan" else 1
         require(step == gs.step == n_steps and ds.step == n_d * n_steps,
                 f"{name} run ended at step {step} (G {gs.step}, D {ds.step})")
@@ -1270,12 +1272,12 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
                 "--vocode", "--device", "cuda"]
     pipe = {}
     for how, extra in (("vocode", []), ("advoc", ["--advoc_ckpt", str(tmp / "hbm")])):
-        zero_counts()
+        _build.launches.clear()
         res = mcli.main([*msg_args, "--infer_dir", str(tmp / f"infer_{how}"), *extra])
         torch.cuda.synchronize()
-        pipe[how] = {"launches": counts(), "mel_l1": res["mel_l1"]}
+        pipe[how] = {"launches": _build.launches.copy(), "mel_l1": res["mel_l1"]}
         require(pipe[how]["launches"]["griffin_lim_tc"] == 2 * 30 + 1
-                and len(res["wavs"]) == 8, f"pipeline {how}: launches {counts()}")
+                and len(res["wavs"]) == 8, f"pipeline {how}: launches {_build.launches}")
         require(all(math.isfinite(v) for v in res["mel_l1"]), f"pipeline {how} {res['mel_l1']}")
     mels = torch.tensor(np.load(tmp / "infer_vocode" / "mels.npy"))
     require(torch.equal(mels, torch.tensor(np.load(tmp / "infer_advoc" / "mels.npy"))),
@@ -1318,7 +1320,7 @@ def families(tmp, dev, mel_l1, zero_counts, counts) -> dict:
     return out
 
 
-def parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi: str) -> dict:
+def parallel(dev, gen, voc, mels, mel_l1, smi: str) -> dict:
     """Phase (k): the mesh'd vocoders, the halo-exchanged featurizer and
     the data-parallel step on the card (see the module's docstring).
     Returns the numbers it printed."""
@@ -1347,14 +1349,12 @@ def parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi: str) -> dict
     want = voc(batch)
     halves = torch.cat([voc(batch[:64]), voc(batch[64:])])
     voc_mesh = Vocoder(gen, mesh=two)
-    zero_counts()
+    _build.launches.clear()
     got = voc_mesh(batch)
     torch.cuda.synchronize()
-    out["vocoder_launches"] = counts()
-    require(out["vocoder_launches"] == {"griffin_lim": 0, "griffin_lim_tc": 2 * (2 * 30 + 1),
-                                        "fused_melspec": 0, "packed_up": 0,
-                                        "group_norm_act": 2 * 2 * norm_levels(gen.cfg),
-                                        "conv_bias_act": 0},
+    out["vocoder_launches"] = _build.launches.copy()
+    require(out["vocoder_launches"] == Counter({"griffin_lim_tc": 2 * (2 * 30 + 1),
+                                                "group_norm_act": 2 * 2 * norm_levels(gen.cfg)}),
             f"kernel launches of the two-shard Vocoder: {out['vocoder_launches']}")
     err = float((got - halves).abs().max())
     err_all = float((got - want).abs().max())
@@ -1486,9 +1486,7 @@ _EXPORT_CHILD = r'''
 import json, pathlib, sys
 import numpy as np, torch
 from advoc_tpu_torch.infer.export import ExportedVocoder
-from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel
-from advoc_tpu_torch.ops.kernels.group_norm import group_norm_act_kernel
-from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel
+from advoc_tpu_torch.ops.kernels import _build
 root = pathlib.Path(sys.argv[1])
 mels = torch.tensor(np.load(root / "mels.npy"), device="cuda")
 res = {}
@@ -1496,14 +1494,10 @@ for name in sys.argv[2:]:
     ev = ExportedVocoder(root / name)
     ev(mels)
     torch.cuda.synchronize()
-    griffin_lim_kernel.launches = griffin_lim_kernel.tc_launches = packed_up_kernel.launches = 0
-    group_norm_act_kernel.launches = 0
+    _build.launches.clear()
     out = ev(mels)
     torch.cuda.synchronize()
-    launches = {"griffin_lim": griffin_lim_kernel.launches,
-                "griffin_lim_tc": griffin_lim_kernel.tc_launches,
-                "packed_up": packed_up_kernel.launches,
-                "group_norm_act": group_norm_act_kernel.launches}
+    launches = dict(_build.launches)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(3):
@@ -1517,7 +1511,7 @@ print("EXPORT_CHILD " + json.dumps(res))
 '''
 
 
-def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl_mag,
+def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, gl_mag,
                     gl_mag_long, smi: str) -> dict:
     """Phase (l): G-L's other loop modes, AOT export, the evaluation panel,
     the generator's other decoder modes and the tools (see the module's
@@ -1579,12 +1573,11 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
                   f"{errs[0]:.2e}, 1-iter {errs[1]:.2e}, 2-iter {errs[2]:.2e}; 30-iter mel L1 "
                   f"{l1:.5f}, fp32 plain {fp32_l1[(b, t)]:.5f}, gap {gap:+.2e}")
         mag = shapes[(128, 256)][1]
-        zero_counts()
+        _build.launches.clear()
         griffin_lim_kernel(mag, 30, 0.99, loop_dtype=mode)
         torch.cuda.synchronize()
-        row["launches"] = counts()
-        require(row["launches"] == {"griffin_lim": 0, "griffin_lim_tc": 61, "fused_melspec": 0,
-                                    "packed_up": 0, "group_norm_act": 0, "conv_bias_act": 0},
+        row["launches"] = _build.launches.copy()
+        require(row["launches"] == Counter({"griffin_lim_tc": 61}),
                 f"G-L {mode} launches {row['launches']}")
         long_mag = shapes[(1, 1024)][1]
         row.update(
@@ -1646,11 +1639,10 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
             got = torch.tensor(np.load(root / f"{name}.npy"), device=dev)
             err = float((got - live).abs().max())
             l1_live, l1_got = mel_l1(live, batch8), mel_l1(got, batch8)
-            launches = child[name]["launches"]
+            launches = Counter(child[name]["launches"])
             tc, pk, gn = want_launches[name]
-            require(tuple(got.shape) == (8, 256 * HOP) and launches["griffin_lim_tc"] == tc
-                    and launches["packed_up"] == pk and launches["griffin_lim"] == 0
-                    and launches["group_norm_act"] == gn,
+            require(tuple(got.shape) == (8, 256 * HOP) and launches == Counter(
+                        {"griffin_lim_tc": tc, "packed_up": pk, "group_norm_act": gn}),
                     f"export {name}: shape {tuple(got.shape)}, launches {launches}")
             require(abs(l1_got - l1_live) <= 1e-4,
                     f"export {name}: mel L1 {l1_got} vs live {l1_live}, max|Δ| {err}")
@@ -1685,11 +1677,11 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl
     stoi8 = em.stoi(ref[0], gen_wav[0])
     print(f"(l-c) vocoder_eval B=8×256 full width on the card: {ev_card} (CPU on the same "
           f"pair {ev_cpu}); STOI of row 0 {stoi8:.4f}")
-    zero_counts()
+    _build.launches.clear()
     t0 = time.perf_counter()
     panel = em.stress_panel(voc, impl="kernel")
     torch.cuda.synchronize()
-    panel_s, panel_launches = time.perf_counter() - t0, counts()
+    panel_s, panel_launches = time.perf_counter() - t0, _build.launches.copy()
     require(panel_launches["fused_melspec"] == 6 and panel_launches["griffin_lim_tc"] == 6 * 61,
             f"stress panel launches {panel_launches}")
     gen_cpu = AdvocGenerator(gen.cfg)
@@ -1801,7 +1793,7 @@ def _script(name: str):
     return mod
 
 
-def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
+def tools(tmp, dev, smi: str, b1_ms: float) -> dict:
     """Phase (m): the port's scripts (``scripts/*_torch.py``) on the card.
     The runbook runs as a child, as a user runs it; the others in-process
     where the kernel counts are read, each with the counts set to 0 just
@@ -1852,10 +1844,10 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
     # The aot stage's artifact, served here: its launches.
     mel1 = torch.zeros((1, 256, 80), device=dev)
     exported = ExportedVocoder(run / "aot", device=dev)
-    zero_counts()
+    _build.launches.clear()
     wav = exported(mel1)
     torch.cuda.synchronize()
-    out["aot_launches"] = counts()
+    out["aot_launches"] = _build.launches.copy()
     require(tuple(wav.shape) == (1, 256 * HOP) and bool(torch.isfinite(wav).all())
             and tc(out["aot_launches"]) == 61
             and norm_pairs(out["aot_launches"]["group_norm_act"], 11, 1),
@@ -1867,26 +1859,26 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
     stress = _script("stress_eval_torch")
     out["stress"] = {}
     for how, extra in (("offline", []), ("streaming gl", ["--streaming", "gl"])):
-        zero_counts()
+        _build.launches.clear()
         panel = stress.main(["--train_dir", train_dir] + extra)
         torch.cuda.synchronize()
-        out["stress"][how] = {"launches": counts(), "panel": panel}
-        print(f"(m-b) stress_eval_torch {how}: launches {counts()}")
+        out["stress"][how] = {"launches": _build.launches.copy(), "panel": panel}
+        print(f"(m-b) stress_eval_torch {how}: launches {_build.launches}")
     require(tc(out["stress"]["offline"]["launches"]) > 0,
             f"stress panel launches {out['stress']['offline']['launches']}")
 
     # -- (m-c) the roofline at its defaults ----------------------------------------
-    zero_counts()
+    _build.launches.clear()
     roof = _script("roofline_torch").main([])
     torch.cuda.synchronize()
-    out["roofline"] = {"launches": counts(), **roof}
+    out["roofline"] = {"launches": _build.launches.copy(), **roof}
     for r in roof["rows"]:
         require(r["mfu"] <= 1.0 and r["bw_frac"] <= 1.0, f"roofline row above a peak: {r}")
     b1 = next(r for r in roof["rows"] if "B1 kernel" in r["stage"])
     require(abs(b1["ms"] / b1_ms - 1) <= 0.15,
             f"roofline B1 row {b1['ms']} ms vs (l-a)'s {b1_ms} ms")
-    require(tc(out["roofline"]["launches"]) > 0, f"roofline launches {counts()}")
-    print(f"(m-c) roofline_torch B=128×256, train batch 16: launches {counts()}; B1 row "
+    require(tc(out["roofline"]["launches"]) > 0, f"roofline launches {_build.launches}")
+    print(f"(m-c) roofline_torch B=128×256, train batch 16: launches {_build.launches}; B1 row "
           f"{b1['ms']:.2f} ms against (l-a)'s {b1_ms:.2f} ms ({smi})")
     for r in roof["rows"]:
         print(f"(m-c) roofline {r['stage']}: {r['ms']:.3f} ms, {r['flops'] / 1e9:.1f} GFLOP, "
@@ -1896,9 +1888,9 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
 
     # -- (m-d) phase timing at its defaults; utterance 0 against the CPU port -------
     pt = _script("phase_timing_torch")
-    zero_counts()
+    _build.launches.clear()
     timing = pt.main([])
-    out["phase_timing"] = {"launches": counts(), **timing}
+    out["phase_timing"] = {"launches": _build.launches.copy(), **timing}
     mel_c, mag_c = pt.inputs(8, 256, 0, "cpu", P)
     with torch.inference_mode():
         for row, (name, fn) in zip(timing["rows"], pt.methods(30, 5, P), strict=True):
@@ -1917,13 +1909,14 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
     ss = _script("stream_serve_torch")
     out["stream_serve"] = {}
     for engine in ("gl", "lws_online"):
-        zero_counts()
+        _build.launches.clear()
         r = ss.main(["--engine", engine, "--n_streams", "16", "--fidelity"])
-        out["stream_serve"][engine] = {"launches": counts(), **r}
+        out["stream_serve"][engine] = {"launches": _build.launches.copy(), **r}
         require(r["mel_l1"] < 0.2, f"stream_serve {engine}: mel L1 {r['mel_l1']}")
         print(f"(m-e) stream_serve_torch {engine} 16 streams: p50 {r['p50_ms']} ms, p95 "
               f"{r['p95_ms']} ms, {r['ms_per_stream']} ms/stream, {r['aggregate_rtf']}× real "
-              f"time, mel L1 {r['mel_l1']}, STOI {r.get('stoi')}; launches {counts()} ({smi})")
+              f"time, mel L1 {r['mel_l1']}, STOI {r.get('stoi')}; launches {_build.launches} "
+              f"({smi})")
     sv = StreamingVocoder(params=P, chunk_frames=64, n_streams=16, gl_iters=16,
                           emit_dtype="int16", device=dev)
     handle = start_in_thread(sv)
@@ -1943,13 +1936,13 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
 
     # -- (m-f) the research harnesses on the run -------------------------------------
     for name in ("projection_sweep_torch", "stoi_analysis_torch"):
-        zero_counts()
+        _build.launches.clear()
         r = _script(name).main(["--train_dir", train_dir, "--n_utts", "2"])
         torch.cuda.synchronize()
-        out[name] = {"launches": counts(), **r}
-        require(tc(counts()) > 0, f"{name} launches {counts()}")
-        print(f"(m-f) {name} --n_utts 2: launches {counts()}")
-    zero_counts()
+        out[name] = {"launches": _build.launches.copy(), **r}
+        require(tc(_build.launches.copy()) > 0, f"{name} launches {_build.launches}")
+        print(f"(m-f) {name} --n_utts 2: launches {_build.launches}")
+    _build.launches.clear()
     ab = _script("quality_ab_torch").main(["--steps", "4",
                                            "--fixture_dir", str(tmp / "ab_fixture")])
     out["quality_ab"] = ab
@@ -1963,57 +1956,51 @@ def tools(tmp, dev, zero_counts, counts, smi: str, b1_ms: float) -> dict:
 
 
 def bench(smi: str, whole_ms: float) -> dict:
-    """Phase (n): ``bench_torch.py`` run as a child process, as a user runs
-    it, then with ``ADVOC_BENCH_FULL=1``; each result line checked. Its
-    launches are counted by the child and reported in its line. ``whole_ms``:
-    phase (m)'s roofline time of the whole call, which the headline's median
-    is printed beside. Returns both result lines."""
+    """Phase (n): ``bench_torch.py`` run as a child process with
+    ``ADVOC_BENCH_FULL=1`` (the headline and its extended panel), as a user
+    runs it; its result line checked. Its launches are counted by the child
+    and reported in its line. ``whole_ms``: phase (m)'s roofline time of the
+    whole call, which the headline's median is printed beside. Returns the
+    result line under ``"full"``."""
     t_phase = time.perf_counter()
     root = pathlib.Path(__file__).resolve().parent
     kind = torch.cuda.get_device_name(0)
     panel = {"cfg1_heuristic", "cfg3_train_step", "cfg6_long_form", "cfg7_streams_1",
              "cfg7_streams_16", "cfg5_wavegan"}
-    torch.cuda.empty_cache()  # the children need the card's memory
-    out: dict = {}
-    for mode, full in (("headline", False), ("full", True)):
-        env = {k: v for k, v in os.environ.items() if k != "ADVOC_BENCH_FULL"}
-        if full:
-            env["ADVOC_BENCH_FULL"] = "1"
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root, env=env,
-                              capture_output=True, text=True, timeout=400)
-        wall = time.perf_counter() - t0
-        lines = proc.stdout.strip().splitlines()
-        try:
-            line = json.loads(lines[-1]) if lines else None
-        except json.JSONDecodeError:
-            line = None
-        if proc.returncode != 0 or not isinstance(line, dict):
-            print(proc.stdout[-4000:], proc.stderr[-8000:])
-        require(proc.returncode == 0 and isinstance(line, dict),
-                f"bench_torch.py {mode}: rc {proc.returncode}, last line {lines[-1:]}")
-        require(line["metric"] == "vocoding_realtime_factor" and line["value"] > 0,
-                f"bench_torch.py {mode}: value {line['value']}")
-        require(line["mfu"] is not None and 0 < line["mfu"] <= 1.05,
-                f"bench_torch.py {mode}: mfu {line['mfu']}")
-        require(line["device"] == kind, f"bench_torch.py {mode}: device {line['device']!r}")
-        require(line["gl_launches_per_call"]["griffin_lim_tc"] == 61,
-                f"bench_torch.py {mode}: B1 launches a call {line['gl_launches_per_call']}")
-        require(not full or set(line.get("extended", {})) == panel,
-                f"bench_torch.py {mode}: extended panel {sorted(line.get('extended', {}))}")
-        if full:
-            wavegan = line["extended"]["cfg5_wavegan"]
-            require(0 < wavegan["mfu"] <= 1.05, f"bench_torch.py {mode}: WaveGAN {wavegan}")
-        out[mode] = line
-        print("\n".join(f"(n) {mode} " + ln for ln in proc.stderr.strip().splitlines()
-                        if ln.startswith("[bench")))
-        print(f"(n) bench_torch.py {mode} ({wall:.1f} s; {smi}): {json.dumps(line)}")
-    head = out["headline"]
+    torch.cuda.empty_cache()  # the child needs the card's memory
+    env = {**os.environ, "ADVOC_BENCH_FULL": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "bench_torch.py")], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        line = None
+    if proc.returncode != 0 or not isinstance(line, dict):
+        print(proc.stdout[-4000:], proc.stderr[-8000:])
+    require(proc.returncode == 0 and isinstance(line, dict),
+            f"bench_torch.py: rc {proc.returncode}, last line {lines[-1:]}")
+    require(line["metric"] == "vocoding_realtime_factor" and line["value"] > 0,
+            f"bench_torch.py: value {line['value']}")
+    require(line["mfu"] is not None and 0 < line["mfu"] <= 1.05,
+            f"bench_torch.py: mfu {line['mfu']}")
+    require(line["device"] == kind, f"bench_torch.py: device {line['device']!r}")
+    require(line["launches_per_call"].get("griffin_lim_tc") == 61,
+            f"bench_torch.py: B1 launches a call {line['launches_per_call']}")
+    require(set(line.get("extended", {})) == panel,
+            f"bench_torch.py: extended panel {sorted(line.get('extended', {}))}")
+    wavegan = line["extended"]["cfg5_wavegan"]
+    require(0 < wavegan["mfu"] <= 1.05, f"bench_torch.py: WaveGAN {wavegan}")
+    print("\n".join("(n) " + ln for ln in proc.stderr.strip().splitlines()
+                    if ln.startswith("[bench")))
+    print(f"(n) bench_torch.py ADVOC_BENCH_FULL=1 ({wall:.1f} s; {smi}): {json.dumps(line)}")
+    head = line
     print(f"(n) headline median {head['ms_median']:.3f} ms (p25 {head['ms_p25']:.3f}, p75 "
           f"{head['ms_p75']:.3f}, {head['n_trials']} trials of {head['k']}), {head['value']:.1f}× "
-          f"real time, mfu {head['mfu']:.4f}; the ADVOC_BENCH_FULL run's "
-          f"{out['full']['ms_median']:.3f} ms; (m-c) roofline whole call {whole_ms:.3f} ms ({smi})")
-    out["phase_s"] = time.perf_counter() - t_phase
+          f"real time, mfu {head['mfu']:.4f}; (m-c) roofline whole call {whole_ms:.3f} ms ({smi})")
+    out = {"full": line, "phase_s": time.perf_counter() - t_phase}
     print(f"phase (n) took {out['phase_s']:.1f} s")
     return out
 
@@ -2033,11 +2020,8 @@ def main() -> int:
     from advoc_tpu_torch.infer import Vocoder
     from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
     from advoc_tpu_torch.ops import spectral as sp
-    from advoc_tpu_torch.ops.kernels import _build
     from advoc_tpu_torch.ops.kernels.featurizer import fused_melspec_kernel, fused_melspec_plain
     from advoc_tpu_torch.ops.kernels.griffin_lim import griffin_lim_kernel, griffin_lim_plain
-    from advoc_tpu_torch.ops.kernels.conv_bias_act import conv_bias_act_kernel
-    from advoc_tpu_torch.ops.kernels.group_norm import group_norm_act_kernel
     from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
     from advoc_tpu_torch.ops.reference import DEFAULT_PARAMS, AudioParams
     from advoc_tpu_torch.utils.roofline import (
@@ -2061,20 +2045,6 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
     print(f"build: {sources} in {time.perf_counter() - t0:.1f} s")
-    # Launch counters, one per CUDA library: (name, wrapper, attribute).
-    counters = (("griffin_lim", griffin_lim_kernel, "launches"),
-                ("griffin_lim_tc", griffin_lim_kernel, "tc_launches"),
-                ("fused_melspec", fused_melspec_kernel, "launches"),
-                ("packed_up", packed_up_kernel, "launches"),
-                ("group_norm_act", group_norm_act_kernel, "launches"),
-                ("conv_bias_act", conv_bias_act_kernel, "launches"))
-
-    def zero_counts() -> None:
-        for _, k, attr in counters:
-            setattr(k, attr, 0)
-
-    def counts() -> dict[str, int]:
-        return {name: getattr(k, attr) for name, k, attr in counters}
 
     def audio(b: int, length: int, seed: int) -> torch.Tensor:
         """(b, length) rows cut from one synthetic signal."""
@@ -2397,17 +2367,16 @@ def main() -> int:
     # The default (split) mode: the batch is B1's case, 2·30 + 1 tensor-core
     # launches; the utterance B2's, 2·30 tensor-core launches and the f32
     # final synthesis, one fp32 gl_synth_ola. No fp32 loop kernel.
-    gl_path = {"griffin_lim": 1, "griffin_lim_tc": 2 * 30 + 1 + 2 * 30}
-    zero_counts()
+    gl_path = Counter({"griffin_lim": 1, "griffin_lim_tc": 2 * 30 + 1 + 2 * 30})
+    _build.launches.clear()
     torch.cuda.reset_peak_memory_stats()
     wav = voc(batch)
     wav_long = voc(utter)
     torch.cuda.synchronize()
-    voc_launches = counts()
+    voc_launches = _build.launches.copy()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # One generator call a Vocoder call: the GroupNorm pair at each of 11 levels.
-    require(voc_launches == {**gl_path, "fused_melspec": 0, "packed_up": 0,
-                             "group_norm_act": 2 * 2 * 11, "conv_bias_act": 0},
+    require(voc_launches == gl_path + Counter({"group_norm_act": 2 * 2 * 11}),
             f"kernel launches on the main path: {voc_launches}")
     for name, w, shape in (("batch", wav, (128, 256 * HOP)), ("utterance", wav_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"{name} shape {tuple(w.shape)}")
@@ -2419,13 +2388,11 @@ def main() -> int:
 
     # gl_precision="highest" takes the fp32 kernels alone (2·30 + 1 launches).
     voc_hi = Vocoder(gen, device="cuda", gl_precision="highest")
-    zero_counts()
+    _build.launches.clear()
     wav_hi = voc_hi(batch)
     torch.cuda.synchronize()
-    hi_launches = counts()
-    require(hi_launches == {"griffin_lim": 2 * 30 + 1, "griffin_lim_tc": 0,
-                            "fused_melspec": 0, "packed_up": 0, "group_norm_act": 2 * 11,
-                            "conv_bias_act": 0},
+    hi_launches = _build.launches.copy()
+    require(hi_launches == Counter({"griffin_lim": 2 * 30 + 1, "group_norm_act": 2 * 11}),
             f"kernel launches at gl_precision='highest': {hi_launches}")
     l1_hi = mel_l1(wav_hi, batch)
     require(abs(l1_batch - l1_hi) < 2e-3, f"mel L1 default {l1_batch} vs highest {l1_hi}")
@@ -2502,12 +2469,12 @@ def main() -> int:
     gen_pk = AdvocGenerator(dataclasses.replace(cfg, packed_tail=True))
     gen_pk.load_state_dict(gen.state_dict(), strict=True)
     gen_pk = gen_pk.to(dev).eval()
-    zero_counts()
+    _build.launches.clear()
     with torch.inference_mode():
         out_pk, out_def = gen_pk(est_norm), gen(est_norm)
     torch.cuda.synchronize()
     d = (out_pk - out_def).abs()
-    require(packed_up_kernel.launches == 1, f"B4 launches: {packed_up_kernel.launches}")
+    require(_build.launches["packed_up"] == 1, f"B4 launches: {_build.launches}")
     require(float(d.max()) <= 4e-2 and float(d.mean()) < 5e-3,
             f"packed-tail vs default generator: max {float(d.max())}, mean {float(d.mean())}")
     print(f"packed-tail generator vs default B=128×256, same weights: max|Δ| "
@@ -2524,14 +2491,14 @@ def main() -> int:
     def copy_synth(x: torch.Tensor) -> torch.Tensor:
         return voc_pk(sp.waveform_to_r9y9_melspec(x, impl="kernel"))
 
-    zero_counts()
+    _build.launches.clear()
     out = copy_synth(wav_in)
     out_long = copy_synth(wav_in_long)
     torch.cuda.synchronize()
-    slice_launches = counts()
+    slice_launches = _build.launches.copy()
     # The packed tail normalises its finest level itself: 10 GroupNorm pairs a call.
-    require(slice_launches == {**gl_path, "fused_melspec": 2, "packed_up": 2,
-                               "group_norm_act": 2 * 2 * 10, "conv_bias_act": 0},
+    require(slice_launches == gl_path + Counter({"fused_melspec": 2, "packed_up": 2,
+                                                 "group_norm_act": 2 * 2 * 10}),
             f"kernel launches on the slice's path: {slice_launches}")
     for name, w, shape in (("batch", out, (128, 256 * HOP)), ("utterance", out_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"slice {name} shape {tuple(w.shape)}")
@@ -2557,16 +2524,16 @@ def main() -> int:
           gl_names + ("featurizer_kernel", "packed_up_kernel", "reduce_parts_kernel"))
 
     # -- 6. The serving path -----------------------------------------------------
-    served = serving(dev, gen, voc, mels, mel_l1, zero_counts, counts)
-    lws_phases(dev, gen, voc, mels, mel_l1, zero_counts, counts)
+    served = serving(dev, gen, voc, mels, mel_l1)
+    lws_phases(dev, gen, voc, mels, mel_l1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        trained = training(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
-        fam = families(pathlib.Path(tmp), dev, mel_l1, zero_counts, counts)
-    par = parallel(dev, gen, voc, mels, mel_l1, zero_counts, counts, smi)
-    rest = rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, zero_counts, counts, gl_mag,
+        trained = training(pathlib.Path(tmp), dev, mel_l1)
+        fam = families(pathlib.Path(tmp), dev, mel_l1)
+    par = parallel(dev, gen, voc, mels, mel_l1, smi)
+    rest = rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, gl_mag,
                            gl_mag_long, smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
-        tool = tools(pathlib.Path(tmp), dev, zero_counts, counts, smi,
+        tool = tools(pathlib.Path(tmp), dev, smi,
                      rest["modes"]["split"]["ms_split_synth"])
     bn = bench(smi, next(r["ms"] for r in tool["roofline"]["rows"]
                          if r["stage"].startswith("WHOLE")))
@@ -2641,7 +2608,7 @@ def main() -> int:
         "launches_tools_projection_sweep": tool["projection_sweep_torch"]["launches"][
             "griffin_lim_tc"],
         "launches_tools_stoi_analysis": tool["stoi_analysis_torch"]["launches"]["griffin_lim_tc"],
-        "launches_bench_torch_per_call": bn["headline"]["gl_launches_per_call"]["griffin_lim_tc"],
+        "launches_bench_torch_per_call": bn["full"]["launches_per_call"]["griffin_lim_tc"],
         "ms_b8_t64": fam["pipeline"]["vocode"]["b1_ms"],
         "bound_ms_b8_t64": fam["pipeline"]["vocode"]["b1_bound_ms"],
         "ms_b8_t256": fam["pipeline"]["advoc"]["b1_ms"],

@@ -56,23 +56,15 @@ ABLATIONS = {
 }
 
 
-def build(src: str, out_dir: pathlib.Path, name: str) -> ctypes.CDLL:
+def build(src: str, out_dir: pathlib.Path, name: str) -> dict:
     """Compile one form of the kernel source with the port's flags; bind it
-    as ``griffin_lim._lib`` binds the real one."""
+    as the port's declaration of the fp32 library binds the real one."""
     cu = out_dir / f"{name}.cu"
     cu.write_text(src)
     so = out_dir / f"lib{name}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
                     str(cu)], check=True)
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gl_synth_ola.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.gl_synth_ola.restype = i
-    lib.gl_analyze_project.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, p]
-    lib.gl_analyze_project.restype = i
-    lib.error_string.argtypes = [i]
-    lib.error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.bind(ctypes.CDLL(str(so)), **tgl._LIB.entries)
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -130,18 +122,18 @@ def main() -> int:
         mel = sp.waveform_to_r9y9_melspec(wav)[: b * t].reshape(b, t, 80)
         mag = sp.r9y9_melspec_to_magspec(mel)[..., :512].contiguous()
         call = lambda: tgl.griffin_lim_kernel(mag, 30, 0.99)  # noqa: E731
-        real_lib = tgl._lib
+        real_fns = tgl._LIB._fns
         result: dict[str, dict[str, float]] = {name: {"ms": []} for name in libs}
         try:
             order = list(libs) + list(libs)[::-1]
             for name in order:
-                tgl._lib = lambda lib=libs[name]: lib
+                tgl._LIB._fns = libs[name]
                 result[name]["ms"].append(cuda_ms(call))
             for name in libs:
-                tgl._lib = lambda lib=libs[name]: lib
+                tgl._LIB._fns = libs[name]
                 result[name].update(launch_ms(call))
         finally:
-            tgl._lib = real_lib
+            tgl._LIB._fns = real_fns
     print(json.dumps({"device": smi, "shape": [b, t, 512], "n_iters": 30, "forms": result}))
     return 0
 

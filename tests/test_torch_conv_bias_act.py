@@ -22,6 +22,7 @@ from advoc_tpu_torch.models.wavegan import (
     WaveGANConfig,
     WaveGANGenerator,
 )
+from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels import conv_bias_act as tcba
 from advoc_tpu_torch.ops.kernels.group_norm import ACTS, activate
 from advoc_tpu_torch.utils.roofline import bound, conv_bias_act_bytes, conv_bias_act_levels
@@ -111,7 +112,7 @@ def test_generators_take_the_plain_path_on_the_cpu(monkeypatch, kernel):
         raise AssertionError("the CPU path reached the kernel")
 
     monkeypatch.setattr(layers, "conv_bias_act_kernel", refuse)
-    before = tcba.conv_bias_act_kernel.launches
+    before = _build.launches["conv_bias_act"]
     wave = WaveGANGenerator(WaveGANConfig(slice_len=1024, width=4, kernel=kernel))
     wave.reset_parameters(torch.Generator().manual_seed(0))
     cond = CondWaveGANGenerator(CondWaveGANConfig(n_frames=8, hop=64, width=4, kernel=kernel))
@@ -130,7 +131,7 @@ def test_generators_take_the_plain_path_on_the_cpu(monkeypatch, kernel):
             want = _up_stack_before(x, cond.ups, dt, lambda y: F.leaky_relu(y, 0.2))
             assert torch.equal(got, want)
             assert got.shape == (2, 8 * 64) and got.requires_grad == (ctx is torch.enable_grad)
-    assert tcba.conv_bias_act_kernel.launches == before
+    assert _build.launches["conv_bias_act"] == before
 
 
 @pytest.mark.parametrize("dtype", tcba.DTYPES)

@@ -199,7 +199,7 @@ class TestKernelArtifacts:
         assert mag.grad is not None
 
     @pytest.mark.parametrize("op", ["griffin_lim", "fused_melspec", "packed_up",
-                                    "group_norm_act"])
+                                    "group_norm_act", "conv_bias_act"])
     def test_registered_operators_pass_opcheck(self, op):
         g = torch.Generator().manual_seed(0)
         p = registered.params_list(AudioParams())
@@ -224,6 +224,14 @@ class TestKernelArtifacts:
             cases = [(x.contiguous(memory_format=torch.channels_last), w, b, 8, "leaky_relu"),
                      (x, w, b, 4, "relu")]
             fn, plain = registered.group_norm_act_op, group_norm_act_plain
+        elif op == "conv_bias_act":
+            from advoc_tpu_torch.ops.kernels.conv_bias_act import conv_bias_act_plain
+
+            y = torch.randn((2, 8, 65), generator=g).to(torch.bfloat16)
+            bias = (torch.randn(8, generator=g) * 0.1).to(torch.bfloat16)
+            cases = [(y, bias, 0, 1, "leaky_relu", torch.float32),
+                     (y[..., :64].contiguous(), bias, 0, 0, "relu", torch.bfloat16)]
+            fn, plain = registered.conv_bias_act_op, conv_bias_act_plain
         else:
             from advoc_tpu_torch.ops.kernels.packed_up import packed_up_plain
 

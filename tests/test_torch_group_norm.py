@@ -6,7 +6,8 @@ float64 at every normalised level; the U-Net's levels take the plain path
 on the CPU (the kernel runs only on the card, where tests/test_torch_cuda.py
 holds it to the plain version); the wrapper on a CPU tensor is the plain
 version in the input's layout and refuses what the kernel does not take,
-and inside ``plain_when_traced`` it traces as plain aten; the tiles follow
+and inside ``_build.plain_when_traced`` it traces as plain aten (as does
+WaveGAN's epilogue); the tiles follow
 the shape.
 """
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from advoc_tpu_torch.models import layers
 from advoc_tpu_torch.models.advoc import AdvocConfig, AdvocGenerator
+from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels import group_norm as tgn
 from advoc_tpu_torch.utils.roofline import group_norm_levels
 
@@ -75,7 +77,7 @@ def test_levels_take_the_plain_path_on_the_cpu(monkeypatch):
             got = up(xu)
             want = F.relu(up.norm(layers.conv_transpose_same(xu, up.conv, dt)))
             assert torch.equal(got, want)
-    assert tgn.group_norm_act_kernel.launches == 0
+    assert _build.launches["group_norm_act"] == 0
 
 
 @pytest.mark.parametrize("nchw", [False, True])
@@ -108,25 +110,43 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
                                   "relu")
 
 
-def test_plain_when_traced_records_plain_aten():
-    """Inside plain_when_traced the traced wrapper is the plain version's
-    aten ops (no advoc operator recorded), bit-equal to the plain version;
-    outside, the registered operator again."""
+def _traced_cases():
+    """Per kernel that stands for no Pallas kernel: its wrapper, its plain
+    version, an input, and a function making the other arguments (made
+    inside the traced call, as constants of the program)."""
+    from advoc_tpu_torch.ops.kernels import conv_bias_act as tcba
+
+    y = (torch.randn((2, 16, 65), generator=torch.Generator().manual_seed(9))).to(torch.bfloat16)
+    return {
+        "group_norm_act": (tgn.group_norm_act_kernel, tgn.group_norm_act_plain,
+                           _x((2, 16, 4, 6), seed=8),
+                           lambda: (torch.linspace(0.5, 1.5, 16), torch.zeros(16), 8, "relu")),
+        "conv_bias_act": (tcba.conv_bias_act_kernel, tcba.conv_bias_act_plain, y,
+                          lambda: (torch.linspace(-0.5, 0.5, 16).to(torch.bfloat16), 0, 1,
+                                   "leaky_relu", torch.float32)),
+    }
+
+
+@pytest.mark.parametrize("name", ["group_norm_act", "conv_bias_act"])
+def test_plain_when_traced_records_plain_aten(name):
+    """Inside _build.plain_when_traced the traced wrapper of a kernel that
+    stands for no Pallas kernel is the plain version's aten ops (no advoc
+    operator recorded), bit-equal to the plain version; outside, the
+    registered operator again."""
     from advoc_tpu_torch.ops.kernels import registered
 
-    class Norm(torch.nn.Module):
-        def forward(self, x):
-            return tgn.group_norm_act_kernel(x, torch.linspace(0.5, 1.5, 16), torch.zeros(16), 8,
-                                             "relu")
+    kernel, plain, x, rest = _traced_cases()[name]
 
-    x = _x((2, 16, 4, 6), seed=8)
-    with tgn.plain_when_traced():
-        program = torch.export.export(Norm(), (x,))
+    class Call(torch.nn.Module):
+        def forward(self, x):
+            return kernel(x, *rest())
+
+    with _build.plain_when_traced():
+        program = torch.export.export(Call(), (x,))
     assert registered.recorded(program.graph_module) == []
-    assert torch.equal(program.module()(x), tgn.group_norm_act_plain(
-        x, torch.linspace(0.5, 1.5, 16), torch.zeros(16), 8, "relu"))
-    program = torch.export.export(Norm(), (x,))
-    assert registered.recorded(program.graph_module) == ["advoc::group_norm_act"]
+    assert torch.equal(program.module()(x), plain(x, *rest()))
+    program = torch.export.export(Call(), (x,))
+    assert registered.recorded(program.graph_module) == [f"advoc::{name}"]
 
 
 def test_tiles_follow_the_shape():

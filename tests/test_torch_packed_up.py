@@ -13,6 +13,7 @@ import torch
 
 from advoc_tpu.ops.pallas.packed_up import packed_up as j_packed_up
 from advoc_tpu_torch.models.convert import to_torch_layout as _to_torch
+from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels import packed_up as tpu
 
 
@@ -100,7 +101,7 @@ def test_class_weights_give_the_kernels_gemm():
 
 def test_cpu_tensor_takes_the_plain_version_in_bf16():
     x, wt, bias = _inputs(1, 16, 8, 8, 8, seed=3)
-    before = tpu.packed_up_kernel.launches
+    before = _build.launches["packed_up"]
     args = (torch.tensor(wt), torch.tensor(bias))
     got = tpu.packed_up_kernel(torch.tensor(x), *args, f=8, tm=8, with_stats=True)
     want = tpu.packed_up_plain(torch.tensor(x).to(torch.bfloat16), *args, f=8, tm=8,
@@ -108,7 +109,7 @@ def test_cpu_tensor_takes_the_plain_version_in_bf16():
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
     assert got[0].dtype == torch.bfloat16
-    assert tpu.packed_up_kernel.launches == before
+    assert _build.launches["packed_up"] == before
 
 
 @pytest.mark.parametrize("kw,match", [
