@@ -15,6 +15,15 @@
 // fma), so with the same statistics the output is bit-identical to it; the
 // sums are taken in another order.
 //
+// With a convolution's bias (conv_bias, (C,) f32, not null) each element
+// either pass reads is first x = T(x + float(T(conv_bias[c]))): the value
+// PyTorch's bias add_ after a cuDNN convolution would have written, here
+// made in registers by the passes that read x anyway, so a level's
+// convolution runs without its bias and the add's own pass over the
+// activation (a strided elementwise kernel in the channels-last layout) is
+// gone. The bias lives in registers (NHWC: a thread's 8 channels) or shared
+// memory (NCHW: the unit's group), read once a CTA.
+//
 // Bound: the floor reads the activation once and writes it once, 4 bytes an
 // element in bf16: at the full-width U-Net on 128 windows of 256 frames the
 // 11 normalised levels hold 1.150 G elements, 4.60 GB, 1.37 ms at 3.35 TB/s;
@@ -45,7 +54,9 @@
 // Measured on an H100 SXM at 700 W (bf16): 2.59 ms over the 11 levels at 128
 // windows, 53% of the one-read floor and 79% of the two-pass figure; the
 // finest level 1.16 ms (55% of its floor); the smallest levels (a few MB)
-// take 8-13 us, launch-bound (PERF.md).
+// take 8-13 us, launch-bound (PERF.md). With the convolution's bias the pair
+// takes 2.61 ms over the 11 levels, where the bias add_ and the pair without
+// it took 5.93 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -129,6 +140,17 @@ __device__ __forceinline__ T activate(float t) {
   return (f > 0.f || f != f) ? y : from_float<T>(0.f);
 }
 
+// The convolution's bias as the convolution casts it to T, in float.
+template <typename T>
+__device__ __forceinline__ float round_bias(float b) { return to_float(from_float<T>(b)); }
+
+// x + rb in T, as PyTorch's add_ on a T tensor computes it (in float,
+// rounded once), back in float.
+template <typename T>
+__device__ __forceinline__ float add_bias(float x, float rb) {
+  return to_float(from_float<T>(__fadd_rn(x, rb)));
+}
+
 // (x - m) * a + b with each operation rounded, as three PyTorch ops.
 __device__ __forceinline__ float affine(float x, float m, float a, float b) {
   return __fadd_rn(__fmul_rn(__fsub_rn(x, m), a), b);
@@ -190,20 +212,24 @@ __device__ void group_stats(const float2* __restrict__ part, int nt, int gpu, fl
 // ---- channels-last: x (B, H, W, C) in memory, P = H * W positions ----------
 
 // grid: B * nt CTAs (sample, tile); tile covers positions [tile * tp, +tp).
-template <typename T>
+template <bool kBias, typename T>
 __global__ void __launch_bounds__(kThreads)
-stats_nhwc(const Vec8<T>* __restrict__ x, float2* __restrict__ part, int P, int C, int G,
-           int nt, int tp) {
+stats_nhwc(const Vec8<T>* __restrict__ x, const float* __restrict__ conv_bias,
+           float2* __restrict__ part, int P, int C, int G, int nt, int tp) {
   __shared__ float red[kThreads * 16];
   const int V = C / 8, R = kThreads / V;
   const int unit = blockIdx.x / nt, tile = blockIdx.x % nt;
   const int col = threadIdx.x % V, row = threadIdx.x / V;
   const int p0 = tile * tp, p1 = min(P, p0 + tp);
   const Vec8<T>* xs = x + static_cast<size_t>(unit) * P * V + col;
-  float s[8], q[8];
+  float s[8], q[8], rb[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j] = q[j] = 0.f;
   if (row < R) {
+    if constexpr (kBias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rb[j] = round_bias<T>(conv_bias[col * 8 + j]);
+    }
     int p = p0 + row;
     for (; p + 3 * R < p1; p += 4 * R) {
       Vec8<T> v[4];
@@ -215,6 +241,7 @@ stats_nhwc(const Vec8<T>* __restrict__ x, float2* __restrict__ part, int P, int 
         unpack(v[i], f);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
+          if constexpr (kBias) f[j] = add_bias<T>(f[j], rb[j]);
           s[j] += f[j];
           q[j] = fmaf(f[j], f[j], q[j]);
         }
@@ -225,6 +252,7 @@ stats_nhwc(const Vec8<T>* __restrict__ x, float2* __restrict__ part, int P, int 
       unpack(ldg(xs + static_cast<size_t>(p) * V), f);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if constexpr (kBias) f[j] = add_bias<T>(f[j], rb[j]);
         s[j] += f[j];
         q[j] = fmaf(f[j], f[j], q[j]);
       }
@@ -273,12 +301,12 @@ stats_nhwc(const Vec8<T>* __restrict__ x, float2* __restrict__ part, int P, int 
 }
 
 // grid: B * nt CTAs in the reverse order; dynamic shared memory G float2.
-template <int kAct, typename T>
+template <int kAct, bool kBias, typename T>
 __global__ void __launch_bounds__(kThreads)
 apply_nhwc(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
            const float2* __restrict__ part, float2* __restrict__ stats,
-           const float* __restrict__ w, const float* __restrict__ bias, int P, int C, int G,
-           int nt, int tp, float n) {
+           const float* __restrict__ w, const float* __restrict__ bias,
+           const float* __restrict__ conv_bias, int P, int C, int G, int nt, int tp, float n) {
   extern __shared__ float2 mi[];
   const int idx = gridDim.x - 1 - blockIdx.x;
   const int unit = idx / nt, tile = idx % nt;
@@ -289,7 +317,7 @@ apply_nhwc(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
   const int col = threadIdx.x % V, row = threadIdx.x / V;
   if (row >= R) return;
   const int cg = C / G;
-  float m[8], a[8], b[8];
+  float m[8], a[8], b[8], rb[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int c = col * 8 + j;
@@ -297,6 +325,7 @@ apply_nhwc(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
     m[j] = st.x;
     a[j] = __fmul_rn(st.y, w[c]);
     b[j] = bias[c];
+    if constexpr (kBias) rb[j] = round_bias<T>(conv_bias[c]);
   }
   const size_t base = static_cast<size_t>(unit) * P * V + col;
   const Vec8<T>* xs = x + base;
@@ -313,7 +342,10 @@ apply_nhwc(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
       T o[8];
       unpack(v[i], f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = activate<kAct, T>(affine(f[j], m[j], a[j], b[j]));
+      for (int j = 0; j < 8; ++j) {
+        if constexpr (kBias) f[j] = add_bias<T>(f[j], rb[j]);
+        o[j] = activate<kAct, T>(affine(f[j], m[j], a[j], b[j]));
+      }
       ys[static_cast<size_t>(p + i * R) * V] = pack(o);
     }
   }
@@ -322,20 +354,49 @@ apply_nhwc(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
     T o[8];
     unpack(ldg(xs + static_cast<size_t>(p) * V), f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = activate<kAct, T>(affine(f[j], m[j], a[j], b[j]));
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (kBias) f[j] = add_bias<T>(f[j], rb[j]);
+      o[j] = activate<kAct, T>(affine(f[j], m[j], a[j], b[j]));
+    }
     ys[static_cast<size_t>(p) * V] = pack(o);
   }
 }
 
 // ---- contiguous NCHW: a unit is (sample, group), L8 vectors in one range ------
 
-// grid: B * G * nt CTAs (unit, tile); tile covers vectors [tile * tv, +tv).
+// The group's rounded convolution biases rb (shared memory) added to the 8
+// elements of vector v of a unit's range, each by its channel.
 template <typename T>
+__device__ __forceinline__ void add_bias_nchw(float (&f)[8], long long v, int HW,
+                                              const float* rb) {
+  const long long e = v * 8;
+  int c = static_cast<int>(e / HW), r = static_cast<int>(e - static_cast<long long>(c) * HW);
+  const bool whole = HW % 8 == 0;  // a vector then lies in one channel
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j] = add_bias<T>(f[j], rb[c]);
+    if (!whole && ++r == HW) {
+      r = 0;
+      ++c;
+    }
+  }
+}
+
+// grid: B * G * nt CTAs (unit, tile); tile covers vectors [tile * tv, +tv);
+// with kBias, dynamic shared memory cg floats (the group's biases).
+template <bool kBias, typename T>
 __global__ void __launch_bounds__(kThreads)
-stats_nchw(const Vec8<T>* __restrict__ x, float2* __restrict__ part, long long L8, int nt,
+stats_nchw(const Vec8<T>* __restrict__ x, const float* __restrict__ conv_bias,
+           float2* __restrict__ part, long long L8, int HW, int G, int cg, int nt,
            long long tv) {
   __shared__ float2 red[kThreads / 32];
+  extern __shared__ float rb[];
   const int unit = blockIdx.x / nt, tile = blockIdx.x % nt;
+  if constexpr (kBias) {
+    const float* gb = conv_bias + (unit % G) * cg;
+    for (int c = threadIdx.x; c < cg; c += kThreads) rb[c] = round_bias<T>(gb[c]);
+    __syncthreads();
+  }
   const Vec8<T>* xs = x + static_cast<size_t>(unit) * L8;
   const long long v0 = tile * tv, v1 = min(L8, v0 + tv);
   float s = 0.f, q = 0.f;
@@ -348,6 +409,7 @@ stats_nchw(const Vec8<T>* __restrict__ x, float2* __restrict__ part, long long L
     for (int i = 0; i < 4; ++i) {
       float f[8];
       unpack(u[i], f);
+      if constexpr (kBias) add_bias_nchw<T>(f, v + i * kThreads, HW, rb);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         s += f[j];
@@ -358,6 +420,7 @@ stats_nchw(const Vec8<T>* __restrict__ x, float2* __restrict__ part, long long L
   for (; v < v1; v += kThreads) {
     float f[8];
     unpack(ldg(xs + v), f);
+    if constexpr (kBias) add_bias_nchw<T>(f, v, HW, rb);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       s += f[j];
@@ -383,16 +446,19 @@ stats_nchw(const Vec8<T>* __restrict__ x, float2* __restrict__ part, long long L
 }
 
 // grid: B * G * nt CTAs in the reverse order; dynamic shared memory one
-// float2 and 2 * cg floats (the group's channels' coefficients).
-template <int kAct, typename T>
+// float2 and 2 * cg floats (the group's channels' coefficients), 3 * cg
+// with kBias (the rounded convolution biases).
+template <int kAct, bool kBias, typename T>
 __global__ void __launch_bounds__(kThreads)
 apply_nchw(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
            const float2* __restrict__ part, float2* __restrict__ stats,
-           const float* __restrict__ w, const float* __restrict__ bias, long long L8,
-           int HW, int G, int cg, int nt, long long tv, float n) {
+           const float* __restrict__ w, const float* __restrict__ bias,
+           const float* __restrict__ conv_bias, long long L8, int HW, int G, int cg, int nt,
+           long long tv, float n) {
   extern __shared__ float2 mi[];
   float* ca = reinterpret_cast<float*>(mi + 1);
   float* cb = ca + cg;
+  float* cr = cb + cg;
   const int idx = gridDim.x - 1 - blockIdx.x;
   const int unit = idx / nt, tile = idx % nt, g = unit % G;
   group_stats(part + static_cast<size_t>(unit) * nt, nt, 1, n, mi);
@@ -401,6 +467,7 @@ apply_nchw(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
   for (int c = threadIdx.x; c < cg; c += blockDim.x) {
     ca[c] = __fmul_rn(mi[0].y, w[g * cg + c]);
     cb[c] = bias[g * cg + c];
+    if constexpr (kBias) cr[c] = round_bias<T>(conv_bias[g * cg + c]);
   }
   __syncthreads();
   const size_t base = static_cast<size_t>(unit) * L8;
@@ -416,7 +483,8 @@ apply_nchw(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
     int c = static_cast<int>(e / HW), r = static_cast<int>(e - static_cast<long long>(c) * HW);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      o[j] = activate<kAct, T>(affine(f[j], mean, ca[c], cb[c]));
+      const float xj = kBias ? add_bias<T>(f[j], cr[c]) : f[j];
+      o[j] = activate<kAct, T>(affine(xj, mean, ca[c], cb[c]));
       if (!whole && ++r == HW) {
         r = 0;
         ++c;
@@ -426,9 +494,10 @@ apply_nchw(const Vec8<T>* __restrict__ x, Vec8<T>* __restrict__ y,
   }
 }
 
-template <int kAct, typename T>
-int launch(const void* xv, const float* w, const float* bias, void* yv, float2* part,
-           float2* stats, int B, int C, int HW, int G, int nhwc, int nt, cudaStream_t s) {
+template <int kAct, bool kBias, typename T>
+int launch(const void* xv, const float* w, const float* bias, const float* conv_bias, void* yv,
+           float2* part, float2* stats, int B, int C, int HW, int G, int nhwc, int nt,
+           cudaStream_t s) {
   const Vec8<T>* x = static_cast<const Vec8<T>*>(xv);
   Vec8<T>* y = static_cast<Vec8<T>*>(yv);
   const int cg = C / G;
@@ -437,30 +506,32 @@ int launch(const void* xv, const float* w, const float* bias, void* yv, float2* 
     const int V = C / 8, R = kThreads / V;
     const int threads = (R * V + 31) / 32 * 32;
     const int tp = (HW + nt - 1) / nt;
-    stats_nhwc<T><<<B * nt, threads, 0, s>>>(x, part, HW, C, G, nt, tp);
+    stats_nhwc<kBias, T><<<B * nt, threads, 0, s>>>(x, conv_bias, part, HW, C, G, nt, tp);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    apply_nhwc<kAct, T><<<B * nt, threads, G * sizeof(float2), s>>>(x, y, part, stats, w, bias,
-                                                                     HW, C, G, nt, tp, n);
+    apply_nhwc<kAct, kBias, T><<<B * nt, threads, G * sizeof(float2), s>>>(
+        x, y, part, stats, w, bias, conv_bias, HW, C, G, nt, tp, n);
   } else {
     const long long L8 = static_cast<long long>(cg) * HW / 8;
     const long long tv = (L8 + nt - 1) / nt;
-    stats_nchw<T><<<B * G * nt, kThreads, 0, s>>>(x, part, L8, nt, tv);
+    stats_nchw<kBias, T><<<B * G * nt, kThreads, kBias ? cg * sizeof(float) : 0, s>>>(
+        x, conv_bias, part, L8, HW, G, cg, nt, tv);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = sizeof(float2) + 2 * cg * sizeof(float);
-    apply_nchw<kAct, T><<<B * G * nt, kThreads, smem, s>>>(x, y, part, stats, w, bias, L8, HW,
-                                                           G, cg, nt, tv, n);
+    const size_t smem = sizeof(float2) + (kBias ? 3 : 2) * cg * sizeof(float);
+    apply_nchw<kAct, kBias, T><<<B * G * nt, kThreads, smem, s>>>(
+        x, y, part, stats, w, bias, conv_bias, L8, HW, G, cg, nt, tv, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_act(int act, const void* x, const float* w, const float* bias, void* y,
-               float2* part, float2* stats, int B, int C, int HW, int G, int nhwc, int nt,
-               cudaStream_t s) {
-  auto run = act == kLeaky ? launch<kLeaky, T> : launch<kRelu, T>;
-  return run(x, w, bias, y, part, stats, B, C, HW, G, nhwc, nt, s);
+int launch_act(int act, const void* x, const float* w, const float* bias,
+               const float* conv_bias, void* y, float2* part, float2* stats, int B, int C,
+               int HW, int G, int nhwc, int nt, cudaStream_t s) {
+  auto run = conv_bias ? (act == kLeaky ? launch<kLeaky, true, T> : launch<kRelu, true, T>)
+                       : (act == kLeaky ? launch<kLeaky, false, T> : launch<kRelu, false, T>);
+  return run(x, w, bias, conv_bias, y, part, stats, B, C, HW, G, nhwc, nt, s);
 }
 
 }  // namespace
@@ -469,21 +540,21 @@ extern "C" {
 
 // x, y (B, C, H, W) of one dtype (0 bf16, 1 f16, 2 f32), channels-last in
 // memory (nhwc = 1) or contiguous NCHW (nhwc = 0), 16-byte aligned; w, bias
-// (C,) f32; part (units, nt, groups a unit) float2 scratch, units = B (NHWC)
+// (C,) f32; conv_bias (C,) f32, added to x as T first, or null; part (units, nt, groups a unit) float2 scratch, units = B (NHWC)
 // or B * G (NCHW); stats (B, G) float2 (mean, inv), written. act 0 is
 // LeakyReLU(0.2), 1 ReLU. Two launches on stream. Needs C % 8 == 0,
 // C % G == 0, C <= 2048 and, in NCHW, (C / G) * H * W % 8 == 0 (checked by
 // the wrapper); returns cudaErrorInvalidValue otherwise.
-int group_norm_act(const void* x, const float* w, const float* bias, void* y, float* part,
-                   float* stats, int B, int C, int HW, int G, int nhwc, int act, int nt,
-                   int dtype, void* stream) {
+int group_norm_act(const void* x, const float* w, const float* bias, const float* conv_bias,
+                   void* y, float* part, float* stats, int B, int C, int HW, int G, int nhwc,
+                   int act, int nt, int dtype, void* stream) {
   if (C % 8 || C > kMaxC || G < 1 || C % G || nt < 1 || (act != kLeaky && act != kRelu) ||
       dtype < 0 || dtype > 2 || (!nhwc && (static_cast<long long>(C / G) * HW) % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || HW == 0) return 0;
   auto run = dtype == 0 ? launch_act<__nv_bfloat16>
                         : dtype == 1 ? launch_act<__half> : launch_act<float>;
-  return run(act, x, w, bias, y, reinterpret_cast<float2*>(part),
+  return run(act, x, w, bias, conv_bias, y, reinterpret_cast<float2*>(part),
              reinterpret_cast<float2*>(stats), B, C, HW, G, nhwc, nt,
              static_cast<cudaStream_t>(stream));
 }

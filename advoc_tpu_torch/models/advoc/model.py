@@ -36,7 +36,14 @@ Under a profiler every convolution (with its casts) is the range
 level normalises and activates through
 :func:`~advoc_tpu_torch.models.layers.group_norm_act`: on the card without
 autograd one CUDA kernel pair in the convolution's layout, else the plain
-``GroupNorm`` and activation.
+``GroupNorm`` and activation. Where the pair takes the level and the
+convolution's bias is per channel of the normalised tensor (``_Down``;
+``_Up`` in the ``convtranspose`` and ``resize`` modes), the level decides so
+before its convolution (:func:`folds_bias`), runs it without the bias and
+hands the bias to the pair, which adds it as the convolution would have:
+the same bits, one pass over the activation fewer
+(``_build.launches["conv_bias_folded"]``, 11 a call of the full-width
+generator).
 
 ``AdvocConfig(packed_tail=True)`` computes the finest decoder level and the
 1×1 head in the packed layout (B, T, W, 2f) of the JAX package
@@ -65,6 +72,7 @@ from advoc_tpu_torch.models.layers import (
     conv_transpose_same,
     flax_init,
     group_norm_act,
+    norm_kernel_takes,
 )
 from advoc_tpu_torch.ops.kernels import _build
 from advoc_tpu_torch.ops.kernels.packed_up import packed_up_kernel, packed_up_plain
@@ -101,6 +109,15 @@ class AdvocConfig:
         return DTYPES[self.dtype]
 
 
+def folds_bias(level: _Down | _Up, x: Tensor) -> bool:
+    """Whether ``level`` runs its convolution of ``x`` without the bias and
+    hands the bias to the GroupNorm pair: where the bias is per channel of
+    the normalised tensor (``level.per_channel_bias``) and the pair takes
+    the level (:func:`~advoc_tpu_torch.models.layers.norm_kernel_takes` over
+    x, the convolution and the norm)."""
+    return level.per_channel_bias and norm_kernel_takes(x, level.conv, level.norm)
+
+
 class _Down(nn.Module):
     """Stride-2 k4 conv → GroupNorm (not at level 0) → LeakyReLU(0.2)."""
 
@@ -109,13 +126,15 @@ class _Down(nn.Module):
         self.dtype = cfg.compute_dtype
         self.conv = nn.Conv2d(cin, features, 4, stride=2, padding=1)
         self.norm = GroupNorm(cfg.norm_groups, features, self.dtype) if use_norm else None
+        self.per_channel_bias = use_norm
 
     def forward(self, x: Tensor) -> Tensor:
-        x = conv_same(x, self.conv, self.dtype)
+        fold = folds_bias(self, x)
+        x = conv_same(x, self.conv, self.dtype, bias=not fold)
         if self.norm is None:
             return F.leaky_relu(x, 0.2)
         with profiling.span("norm"):
-            return group_norm_act(x, self.norm, "leaky_relu")
+            return group_norm_act(x, self.norm, "leaky_relu", self.conv.bias if fold else None)
 
 
 class _Up(nn.Module):
@@ -135,11 +154,15 @@ class _Up(nn.Module):
         else:
             raise ValueError(f"unknown upsample mode {self.mode!r}")
         self.norm = GroupNorm(cfg.norm_groups, features, self.dtype)
+        # The two depth-to-space modes' bias is per channel of the
+        # convolution's 4F outputs, before the shuffle.
+        self.per_channel_bias = self.mode in ("convtranspose", "resize")
 
     def forward(self, x: Tensor) -> Tensor:
         f, dt = self.features, self.dtype
+        fold = folds_bias(self, x)
         if self.mode == "convtranspose":
-            x = conv_transpose_same(x, self.conv, dt)
+            x = conv_transpose_same(x, self.conv, dt, bias=not fold)
         elif self.mode == "pixelshuffle":
             # Depth-to-space: channel (dy·2 + dx)·F + c of pixel (h, w) is
             # output pixel (2h + dy, 2w + dx), channel c (flax's reshape).
@@ -160,9 +183,9 @@ class _Up(nn.Module):
             x = torch.stack([top, bot], dim=3).reshape(b, f, 2 * h, 2 * w)
         else:  # resize: nearest ×2 (each pixel repeated, as jax.image.resize), 4×4 SAME conv
             x = conv_same(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3),
-                          self.conv, dt)
+                          self.conv, dt, bias=not fold)
         with profiling.span("norm"):
-            return group_norm_act(x, self.norm, "relu")
+            return group_norm_act(x, self.norm, "relu", self.conv.bias if fold else None)
 
 
 class _PackedTailUp(nn.Module):

@@ -3,7 +3,9 @@
 * :class:`GroupNorm`: flax ``GroupNorm`` (eps 1e-6, f32 statistics with
   var = E[x²] − E[x]², output in a chosen dtype); :func:`group_norm_act`:
   a GroupNorm with its activation, on the card without autograd the fused
-  kernel (:mod:`advoc_tpu_torch.ops.kernels.group_norm`).
+  kernel (:mod:`advoc_tpu_torch.ops.kernels.group_norm`) where
+  :func:`norm_kernel_takes` the level, which can take the preceding
+  convolution's bias.
 * :func:`flax_init`: flax's default initializers (lecun_normal kernels,
   zero biases, GroupNorm scale 1 and bias 0).
 * :func:`conv_same`: flax ``Conv(padding="SAME", dtype=...)``, 1-D or 2-D,
@@ -59,25 +61,36 @@ class GroupNorm(nn.Module):
                                       self.bias, None, self.dtype)
 
 
-def group_norm_act(x: Tensor, norm: GroupNorm, act: str) -> Tensor:
+def norm_kernel_takes(x: Tensor, *modules: nn.Module) -> bool:
+    """Whether the GroupNorm kernel pair takes a level that computes from
+    ``x`` through ``modules`` (its norm, and its convolution where that
+    matters): a CUDA ``x`` that autograd would not record (grad off, or none
+    of x and the modules' parameters requiring it: the Vocoder, streaming,
+    export, a train step's frozen generator). A CPU tensor, and a CUDA one
+    under autograd (the kernel has no backward, so a training step's
+    generator update), run the plain ops."""
+    return x.is_cuda and not _build.records((x, *(p for m in modules for p in m.parameters())))
+
+
+def group_norm_act(x: Tensor, norm: GroupNorm, act: str,
+                   conv_bias: Tensor | None = None) -> Tensor:
     """``act`` (``"leaky_relu"`` at slope 0.2, or ``"relu"``) of ``norm(x)``.
 
-    A CUDA ``x`` that autograd would not record (grad off, or none of x,
-    weight, bias requiring it: the Vocoder, streaming, export, a train
-    step's frozen generator) goes to the fused kernel,
+    Where :func:`norm_kernel_takes` ``x`` and ``norm``, the fused kernel,
     :func:`~advoc_tpu_torch.ops.kernels.group_norm.group_norm_act_kernel`
     (the registered operator while traced), which raises on what it does
-    not take; so does a norm whose output dtype is not x's. A CPU tensor,
-    and a CUDA one under autograd (the kernel has no backward, so a
-    training step's generator update), run ``norm`` and the activation.
+    not take; so does a norm whose output dtype is not x's. Else ``norm``
+    and the activation. A ``conv_bias`` (C,) is a level's convolution bias,
+    handed over where the level found that the kernel takes it (over its
+    convolution too) and ran the convolution without it: the kernel adds it
+    to x in x's dtype first.
     """
-    params = (norm.weight, norm.bias)
-    if x.is_cuda and not _build.records((x, *params)):
-        if x.dtype != norm.dtype:
-            raise ValueError(f"group_norm_act: the kernel writes x's dtype {x.dtype}, the norm "
-                             f"{norm.dtype}")
-        return group_norm_act_kernel(x, *params, norm.groups, act)
-    return activate(norm(x), act)
+    if conv_bias is None and not norm_kernel_takes(x, norm):
+        return activate(norm(x), act)
+    if x.dtype != norm.dtype:
+        raise ValueError(f"group_norm_act: the kernel writes x's dtype {x.dtype}, the norm "
+                         f"{norm.dtype}")
+    return group_norm_act_kernel(x, norm.weight, norm.bias, norm.groups, act, conv_bias)
 
 
 def flax_init(module: nn.Module, generator: torch.Generator) -> None:
@@ -128,17 +141,18 @@ def _conv(fn, x: Tensor, layer: nn.Module, dtype: torch.dtype, bias: bool = True
         return fn(*(a.to(dtype) for a in args), **kw)
 
 
-def conv_same(x: Tensor, conv: nn.Conv1d | nn.Conv2d, dtype: torch.dtype) -> Tensor:
+def conv_same(x: Tensor, conv: nn.Conv1d | nn.Conv2d, dtype: torch.dtype,
+              bias: bool = True) -> Tensor:
     """flax ``Conv(padding="SAME", dtype=...)`` of a channels-first ``x``
-    (B, C, T) or (B, C, H, W): input, kernel and bias cast to ``dtype``,
-    padded inside the convolution where the padding is symmetric, else by
-    ``F.pad`` first."""
+    (B, C, T) or (B, C, H, W): input, kernel and bias (none where ``bias`` is
+    False) cast to ``dtype``, padded inside the convolution where the
+    padding is symmetric, else by ``F.pad`` first."""
     pads = [same_pads(n, k, s) for n, k, s in zip(x.shape[2:], conv.kernel_size, conv.stride)]
     padding = [lo for lo, _ in pads]
     if any(lo != hi for lo, hi in pads):
         x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
         padding = [0] * len(pads)
-    return _conv(F.conv1d if x.ndim == 3 else F.conv2d, x, conv, dtype, stride=conv.stride,
+    return _conv(F.conv1d if x.ndim == 3 else F.conv2d, x, conv, dtype, bias, stride=conv.stride,
                  padding=padding)
 
 
@@ -168,14 +182,14 @@ def transpose_geometry(kernel_size, stride):
 
 
 def conv_transpose_same(x: Tensor, conv: nn.ConvTranspose1d | nn.ConvTranspose2d,
-                        dtype: torch.dtype) -> Tensor:
+                        dtype: torch.dtype, bias: bool = True) -> Tensor:
     """flax ``ConvTranspose(padding="SAME", dtype=...)`` of a channels-first
     ``x``, the converter having flipped flax's kernel spatially (flax does
     not transpose it): output n·s per axis, :func:`transpose_crop` taken
     inside the transposed convolution where it is symmetric and sliced off
-    otherwise."""
+    otherwise; no bias where ``bias`` is False."""
     padding, extra, cuts = transpose_geometry(conv.kernel_size, conv.stride)
-    y = _conv(F.conv_transpose1d if x.ndim == 3 else F.conv_transpose2d, x, conv, dtype,
+    y = _conv(F.conv_transpose1d if x.ndim == 3 else F.conv_transpose2d, x, conv, dtype, bias,
               stride=conv.stride, padding=padding, output_padding=extra)
     for axis, (cut_lo, cut_hi) in enumerate(cuts, start=2):
         if cut_lo or cut_hi:

@@ -45,7 +45,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 PTR, INT, INT64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-launches: collections.Counter = collections.Counter()  # by each Library's counter key
+# By each Library's counter key; and "conv_bias_folded", the GroupNorm pairs
+# launched with a convolution's bias (ops/kernels/group_norm.py, at the launch).
+launches: collections.Counter = collections.Counter()
 _plain_traced = False
 
 

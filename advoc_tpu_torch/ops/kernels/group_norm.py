@@ -20,6 +20,13 @@ act(T((x − mean)·(inv·w) + b)) in x's dtype T and layout, with the plain
 path's own rounding, op by op. The tiles per unit come from the shape
 (:func:`tiles`), never from a setting.
 
+A level whose convolution feeds the pair straight hands it the
+convolution's bias (``conv_bias``) and runs the convolution without it: both
+passes add the bias, rounded to x's dtype, to each element they read, as
+PyTorch's bias ``add_`` after a cuDNN convolution would have written it, so
+that add's own strided pass over the activation goes and the output's bits
+stay.
+
 Bound (:func:`~advoc_tpu_torch.utils.roofline.group_norm_bytes`): the floor
 reads each element once and writes it once, 4 bytes in bf16. At the
 full-width U-Net on 128 windows of 256 frames the 11 levels hold 1.150 G
@@ -77,17 +84,21 @@ def group_norm_apply_plain(x: Tensor, mean: Tensor, inv: Tensor, weight: Tensor,
     return y if act is None else activate(y, act)
 
 
-def group_norm_act_plain(x: Tensor, weight: Tensor, bias: Tensor, groups: int,
-                         act: str) -> Tensor:
-    """The kernel's function in plain PyTorch: the port's ``GroupNorm``
-    (:class:`~advoc_tpu_torch.models.layers.GroupNorm`, output in x's dtype)
-    followed by ``act``. The CPU path of :func:`group_norm_act_kernel` and
-    the reference the kernel is held to."""
+def group_norm_act_plain(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str,
+                         conv_bias: Tensor | None = None) -> Tensor:
+    """The kernel's function in plain PyTorch: ``conv_bias`` (C,), where
+    given, cast to x's dtype and added in it (a convolution's bias add), then
+    the port's ``GroupNorm`` (:class:`~advoc_tpu_torch.models.layers.
+    GroupNorm`, output in x's dtype) followed by ``act``. The CPU path of
+    :func:`group_norm_act_kernel` and the reference the kernel is held to."""
+    if conv_bias is not None:
+        x = x + conv_bias.to(x.dtype).reshape(-1, 1, 1)
     mean, inv = group_norm_stats_plain(x, groups)
     return group_norm_apply_plain(x, mean, inv, weight, bias, act)
 
 
-def _check(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> bool:
+def _check(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str,
+           conv_bias: Tensor | None = None) -> bool:
     """Raise on what the kernel does not take; True where ``x`` is
     channels-last in memory, False where it is contiguous NCHW."""
     if x.ndim != 4:
@@ -98,6 +109,8 @@ def _check(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> bo
     if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(f"weight and bias must be ({c},), got {tuple(weight.shape)} and "
                          f"{tuple(bias.shape)}")
+    if conv_bias is not None and tuple(conv_bias.shape) != (c,):
+        raise ValueError(f"conv_bias must be ({c},), got {tuple(conv_bias.shape)}")
     if x.dtype not in DTYPES:
         raise ValueError(f"group_norm_act_kernel needs a bfloat16, float16 or float32 x, got "
                          f"{x.dtype}")
@@ -128,34 +141,41 @@ def _sms(index: int) -> int:
 
 
 _LIB = _build.Library("group_norm", "group_norm_act", per_call=2,
-                      group_norm_act=[_build.PTR] * 6 + [_build.INT] * 8)
+                      group_norm_act=[_build.PTR] * 7 + [_build.INT] * 8)
 
 
-def group_norm_act_kernel(x: Tensor, weight: Tensor, bias: Tensor, groups: int,
-                          act: str) -> Tensor:
-    """act(GroupNorm(x)) of a (B, C, H, W) ``x`` in bf16, f16 or f32,
-    channels-last or contiguous NCHW, in x's dtype and layout; ``weight``
-    and ``bias`` (C,). Raises on a tensor the kernel does not take (C % 8,
+def group_norm_act_kernel(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str,
+                          conv_bias: Tensor | None = None) -> Tensor:
+    """act(GroupNorm(x + conv_bias)) of a (B, C, H, W) ``x`` in bf16, f16
+    or f32, channels-last or contiguous NCHW, in x's dtype and layout;
+    ``weight``, ``bias`` and ``conv_bias`` (C,), the last optional and added
+    in x's dtype. Raises on a tensor the kernel does not take (C % 8,
     C % groups, C above 2048, another dtype or layout). By ``_build``'s
-    rule: two launches on the card (``launches["group_norm_act"]``),
+    rule: two launches on the card (``launches["group_norm_act"]``; with
+    ``conv_bias`` 1 in ``launches["conv_bias_folded"]`` too),
     :func:`group_norm_act_plain` on the CPU, ``advoc::group_norm_act``
     traced; it stands for no Pallas kernel."""
-    _check(x, weight, bias, groups, act)
-    return _KERNEL(x, weight, bias, groups, act)
+    _check(x, weight, bias, groups, act, conv_bias)
+    return _KERNEL(x, weight, bias, groups, act, conv_bias)
 
 
-def _op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> Tensor:
+def _op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str,
+        conv_bias: Tensor | None) -> Tensor:
     from advoc_tpu_torch.ops.kernels import registered
 
-    return registered.group_norm_act_op(x, weight.to(x.device), bias.to(x.device), groups, act)
+    return registered.group_norm_act_op(x, weight.to(x.device), bias.to(x.device), groups, act,
+                                        None if conv_bias is None else conv_bias.to(x.device))
 
 
-def _launch(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str):
+def _launch(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str,
+            conv_bias: Tensor | None = None):
     """The kernel on a CUDA tensor that :func:`_check` passed: (y,
     scratch), the first 2·B·G floats of scratch the f32 (mean, inv) of each
     (sample, group) that the normalise pass used. It runs once a U-Net
     level, on the host's critical path at small batches: no view of the
-    statistics."""
+    statistics. A pair launched with ``conv_bias`` counts 1 in
+    ``_build.launches["conv_bias_folded"]``, eager or inside a served
+    artifact alike."""
     if x.data_ptr() % 16:
         raise ValueError("group_norm_act_kernel needs x 16-byte aligned")
     nhwc = x.stride(1) == 1  # channels-last: _check passed, so C >= 8
@@ -170,9 +190,13 @@ def _launch(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str):
                           dtype=torch.float32, device=dev)
     wf = weight.to(dev, torch.float32).contiguous()
     bf = bias.to(dev, torch.float32).contiguous()
-    _LIB.launch(dev, "group_norm_act", x.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
+    cf = None if conv_bias is None else conv_bias.to(dev, torch.float32).contiguous()
+    _LIB.launch(dev, "group_norm_act", x.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                None if cf is None else cf.data_ptr(), y.data_ptr(),
                 scratch.data_ptr() + 4 * n_stats, scratch.data_ptr(), b, c, h * w, groups,
                 int(nhwc), ACTS.index(act), nt, DTYPES.index(x.dtype))
+    if cf is not None:
+        _build.launches["conv_bias_folded"] += 1
     return y, scratch
 
 

@@ -137,20 +137,22 @@ def _no_stats(x: Tensor) -> tuple[Tensor, Tensor]:
 # -- advoc::group_norm_act ---------------------------------------------------
 
 @torch.library.custom_op("advoc::group_norm_act", mutates_args=(), device_types="cuda")
-def group_norm_act_op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str) -> Tensor:
-    """act(GroupNorm(x)) in x's layout (channels-last or contiguous NCHW)."""
-    group_norm._check(x, weight, bias, groups, act)
-    return group_norm._launch(x, weight, bias, groups, act)[0]
+def group_norm_act_op(x: Tensor, weight: Tensor, bias: Tensor, groups: int, act: str,
+                      conv_bias: Optional[Tensor] = None) -> Tensor:
+    """act(GroupNorm(x + conv_bias)) in x's layout (channels-last or
+    contiguous NCHW); no bias added where ``conv_bias`` is None."""
+    group_norm._check(x, weight, bias, groups, act, conv_bias)
+    return group_norm._launch(x, weight, bias, groups, act, conv_bias)[0]
 
 
 @group_norm_act_op.register_kernel("cpu")
-def _(x, weight, bias, groups, act):
+def _(x, weight, bias, groups, act, conv_bias=None):
     # The plain version's elementwise ops keep x's layout.
-    return group_norm.group_norm_act_plain(x, weight, bias, groups, act)
+    return group_norm.group_norm_act_plain(x, weight, bias, groups, act, conv_bias)
 
 
 @group_norm_act_op.register_fake
-def _(x, weight, bias, groups, act):
+def _(x, weight, bias, groups, act, conv_bias=None):
     return torch.empty_like(x)
 
 

@@ -154,6 +154,20 @@ def norm_levels(cfg) -> int:
     return len(group_norm_levels(cfg, 1))
 
 
+def norm_launches(levels: int, calls: int) -> Counter:
+    """The counts of ``calls`` calls of a generator of ``levels`` normalised
+    levels on the card without autograd: the GroupNorm pair at each level,
+    and each level's convolution bias folded into it (the default decoder)."""
+    return Counter({"group_norm_act": 2 * levels * calls, "conv_bias_folded": levels * calls})
+
+
+def pop_norm(launches: Counter) -> int:
+    """Takes the GroupNorm launches and the folded convolution biases out of
+    ``launches``: the former, or -1 where the biases are not one a pair."""
+    gn, folded = launches.pop("group_norm_act", 0), launches.pop("conv_bias_folded", 0)
+    return gn if gn == 2 * folded else -1
+
+
 def norm_pairs(n: int, levels: int, calls: int | None = None) -> bool:
     """Whether ``n`` GroupNorm kernel launches are the pair at each of a
     generator's ``levels`` normalised levels, ``calls`` times (a positive
@@ -202,20 +216,25 @@ def device_trace(fn) -> tuple[float, dict[str, tuple[float, int]]]:
 def group_norm(dev) -> dict:
     """2d. GroupNorm + activation against its plain version at each of the
     full-width U-Net's 11 normalised levels on 128 windows (chunks-b128's
-    shapes), channels-last as the convolutions return them: the kernel's
+    shapes), channels-last as the convolutions return them, handed a
+    nonzero convolution bias as the main path hands it: the kernel's
     (mean, inv) within 1e-5 relative of the plain ones, its output bit-equal
     to the plain formula on its own statistics and within one bf16 ulp of
     the plain version (two on LeakyReLU's negative side) plus 1e-5 (the
     statistics' last bits, summed in another order, are many ulps of a value
     near 0), with the largest ulps where the output is at least 2^-4 and the
-    largest difference below. Times each level:
-    the kernel, the plain version and a yardstick the port never calls,
-    ``F.group_norm`` (bf16 weights) followed by the activation; the bound is
-    the floor, one read and one write of the activation at 3.35 TB/s, and
-    ``two_pass_ms`` two reads and one write. Times are the
-    card's kernel time a call from a profiler over 5 calls (a small level's
-    call is shorter than its host's), and the kernel's wall time a call by
-    CUDA events."""
+    largest difference below; and output and statistics bit-equal to the
+    bias ``add_`` PyTorch runs after a cuDNN convolution followed by the
+    pair without the bias. Times each level: the kernel with the bias (the
+    main path's call), without it (``no_bias_ms``), the ``add_`` followed by
+    the pair without it (``unfused_ms``), the plain version with the bias
+    and a yardstick the port never calls, ``F.group_norm`` (bf16 weights)
+    followed by the activation, without the bias; the bound is the floor,
+    one read and one write of the activation at 3.35 TB/s, and
+    ``two_pass_ms`` two reads and one write. Times are the card's kernel
+    time a call from a profiler over 5 calls (a small level's call is
+    shorter than its host's), and the kernel's wall time a call by CUDA
+    events."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
@@ -241,14 +260,24 @@ def group_norm(dev) -> dict:
             memory_format=torch.channels_last)
         w = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
         b = 0.1 * torch.randn(c, generator=g, device=dev)
-        y, scratch = gn._launch(x, w, b, 8, act)
+        cb = 0.2 * torch.randn(c, generator=g, device=dev)
+        cb4 = cb.to(torch.bfloat16).reshape(1, c, 1, 1)
+        added = x.clone().add_(cb4)  # what the convolution with its bias returns
+        before = _build.launches.copy()
+        y, scratch = gn._launch(x, w, b, 8, act, cb)
+        y_add, scratch_add = gn._launch(added, w, b, 8, act)
+        require(_build.launches - before == Counter({"group_norm_act": 4, "conv_bias_folded": 1}),
+                f"group_norm {name}: launches {_build.launches - before}")
         stats = scratch[: 2 * 128 * 8].view(128, 8, 2)
-        mean, inv = gn.group_norm_stats_plain(x, 8)
+        folded_same = torch.equal(y, y_add) and torch.equal(stats, scratch_add[: 2 * 128 * 8]
+                                                           .view(128, 8, 2))
+        del y_add, scratch_add
+        mean, inv = gn.group_norm_stats_plain(added, 8)
         stat_rel = max(float(((stats[..., 0] - mean).abs() / mean.abs().clamp(min=1e-6)).max()),
                        float(((stats[..., 1] - inv).abs() / inv).max()))
-        same = torch.equal(y, gn.group_norm_apply_plain(x, stats[..., 0], stats[..., 1], w, b,
+        same = torch.equal(y, gn.group_norm_apply_plain(added, stats[..., 0], stats[..., 1], w, b,
                                                         act))
-        want = gn.group_norm_act_plain(x, w, b, 8, act).float()
+        want = gn.group_norm_act_plain(x, w, b, 8, act, conv_bias=cb).float()
         _, e = torch.frexp(want)
         ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want), e - 8))
         k = torch.where(want < 0, 2.0 if act == "leaky_relu" else 1.0, 1.0)
@@ -257,37 +286,47 @@ def group_norm(dev) -> dict:
         big = want.abs() >= 2**-4
         ulps_big = float((diff[big] / ulp[big]).max())
         small_abs = float(diff[~big].max())
-        require(same and stat_rel <= 1e-5 and excess <= 0 and y.stride() == x.stride(),
-                f"group_norm {name} {tuple(shape)}: equal on its statistics {same}, statistics "
-                f"rel {stat_rel}, beyond k ulps + 1e-5 by {excess}, strides {y.stride()}")
+        require(same and folded_same and stat_rel <= 1e-5 and excess <= 0
+                and y.stride() == x.stride(),
+                f"group_norm {name} {tuple(shape)}: equal on its statistics {same}, to add_ "
+                f"then the pair {folded_same}, statistics rel {stat_rel}, beyond k ulps + 1e-5 "
+                f"by {excess}, strides {y.stride()}")
         del y, scratch, stats, mean, inv, want, e, ulp, k, diff, big
         actf = (lambda t: F.leaky_relu(t, 0.2)) if act == "leaky_relu" else F.relu
         wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
         row = {
             "shape": list(shape), "stat_rel": stat_rel, "max_ulps_above": ulps_big,
             "max_abs_below": small_abs,
-            "ms": kernel_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act)),  # noqa: B023
-            "wall_ms": cuda_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act), reps=10),  # noqa: B023
-            "plain_ms": kernel_ms(lambda: gn.group_norm_act_plain(x, w, b, 8, act)),  # noqa: B023
+            "ms": kernel_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act, cb)),  # noqa: B023
+            "wall_ms": cuda_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act, cb),  # noqa: B023
+                               reps=10),
+            "no_bias_ms": kernel_ms(lambda: gn.group_norm_act_kernel(x, w, b, 8, act)),  # noqa: B023
+            "unfused_ms": kernel_ms(lambda: gn.group_norm_act_kernel(  # noqa: B023
+                added.add_(cb4), w, b, 8, act)),  # noqa: B023
+            "plain_ms": kernel_ms(lambda: gn.group_norm_act_plain(  # noqa: B023
+                x, w, b, 8, act, conv_bias=cb)),  # noqa: B023
             "library_ms": kernel_ms(lambda: actf(F.group_norm(x, 8, wb, bb, eps=1e-6))),  # noqa: B023
             "bound_ms": bound(0.0, group_norm_bytes(shape))[0],
             "two_pass_ms": bound(0.0, group_norm_bytes(shape, reads=2))[0],
         }
         rows[name] = row
-        print(f"group_norm {name} {tuple(shape)} {act}: kernel {row['ms']:.4f} ms "
-              f"({row['bound_ms'] / row['ms']:.1%} of its {row['bound_ms']:.4f} ms bound, "
-              f"two passes {row['two_pass_ms']:.4f}; wall {row['wall_ms']:.4f}), plain "
-              f"{row['plain_ms']:.3f} ms, F.group_norm + act {row['library_ms']:.3f} ms; "
-              f"statistics rel {stat_rel:.1e}, ulps at |y| ≥ 2^-4 {ulps_big:g}, below "
-              f"{small_abs:.1e}")
-        del x
-    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "wall_ms", "plain_ms",
+        print(f"group_norm {name} {tuple(shape)} {act}: kernel with the conv bias "
+              f"{row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of its "
+              f"{row['bound_ms']:.4f} ms bound, two passes {row['two_pass_ms']:.4f}; wall "
+              f"{row['wall_ms']:.4f}), without it {row['no_bias_ms']:.4f}, add_ then the pair "
+              f"{row['unfused_ms']:.4f}, plain {row['plain_ms']:.3f} ms, F.group_norm + act "
+              f"{row['library_ms']:.3f} ms; statistics rel {stat_rel:.1e}, ulps at |y| ≥ 2^-4 "
+              f"{ulps_big:g}, below {small_abs:.1e}")
+        del x, added
+    total = {k: sum(r[k] for r in rows.values()) for k in ("ms", "wall_ms", "no_bias_ms",
+                                                            "unfused_ms", "plain_ms",
                                                             "library_ms", "bound_ms",
                                                             "two_pass_ms")}
-    print(f"group_norm 11 levels B=128: kernel {total['ms']:.3f} ms ({total['bound_ms']:.3f} ms "
-          f"bound, {total['bound_ms'] / total['ms']:.1%}; two passes {total['two_pass_ms']:.3f} "
-          f"ms, {total['two_pass_ms'] / total['ms']:.1%}; wall {total['wall_ms']:.3f}), plain "
-          f"{total['plain_ms']:.2f} ms, "
+    print(f"group_norm 11 levels B=128, with the conv bias: kernel {total['ms']:.3f} ms "
+          f"({total['bound_ms']:.3f} ms bound, {total['bound_ms'] / total['ms']:.1%}; two passes "
+          f"{total['two_pass_ms']:.3f} ms, {total['two_pass_ms'] / total['ms']:.1%}; wall "
+          f"{total['wall_ms']:.3f}), without it {total['no_bias_ms']:.3f} ms, add_ then the pair "
+          f"{total['unfused_ms']:.3f} ms, plain {total['plain_ms']:.2f} ms, "
           f"F.group_norm + act {total['library_ms']:.2f} ms; up5 kernel {rows['up5']['ms']:.3f} "
           f"ms of {rows['up5']['bound_ms']:.3f}")
     return {"levels": rows, **total}
@@ -548,7 +587,7 @@ def _serving(tmp, dev, gen, voc, mels, mel_l1) -> dict:
                 f"vocode_cli u{i}: mel L1 {l1_cli} vs matmul-scan Vocoder {l1_ref}")
     torch.cuda.synchronize()
     got = _build.launches.copy()
-    gn = got.pop("group_norm_act", 0)
+    gn = pop_norm(got)
     require(not any(got.values()) and norm_pairs(gn, norm_levels(gen.cfg), len(lengths)),
             f"the matmul-scan reference launched {_build.launches}: no kernel but the GroupNorm "
             f"pair at each level of its {len(lengths)} generator calls")
@@ -585,7 +624,7 @@ def lws_phases(dev, gen, voc, mels, mel_l1) -> dict:
         of ``levels`` normalised levels where it runs one."""
         torch.cuda.synchronize()
         got = _build.launches.copy()
-        gn = got.pop("group_norm_act", 0)
+        gn = pop_norm(got)
         require(not any(got.values()) and (norm_pairs(gn, levels, calls) if levels else gn == 0),
                 f"{what}: port kernels launched {_build.launches} (GroupNorm: {levels} levels, "
                 f"{calls} calls)")
@@ -858,7 +897,7 @@ def training(tmp, dev, mel_l1) -> dict:
     torch.cuda.synchronize()
     # The D update runs the frozen generator under no_grad: the GroupNorm pair
     # at each level a step. The G update, under autograd, the plain GroupNorm.
-    require(_build.launches == Counter({"group_norm_act": 24 * 2 * norm_levels(cfg)}),
+    require(_build.launches == norm_launches(norm_levels(cfg), 24),
             f"the train step runs no port kernel but the D update's GroupNorm: {_build.launches}")
     require(step == 24 and gs.step == ds.step == 24 and "staged in device memory" in text,
             f"hbm run ended at step {step}")
@@ -1353,8 +1392,8 @@ def parallel(dev, gen, voc, mels, mel_l1, smi: str) -> dict:
     got = voc_mesh(batch)
     torch.cuda.synchronize()
     out["vocoder_launches"] = _build.launches.copy()
-    require(out["vocoder_launches"] == Counter({"griffin_lim_tc": 2 * (2 * 30 + 1),
-                                                "group_norm_act": 2 * 2 * norm_levels(gen.cfg)}),
+    require(out["vocoder_launches"] == Counter({"griffin_lim_tc": 2 * (2 * 30 + 1)})
+            + norm_launches(norm_levels(gen.cfg), 2),
             f"kernel launches of the two-shard Vocoder: {out['vocoder_launches']}")
     err = float((got - halves).abs().max())
     err_all = float((got - want).abs().max())
@@ -1633,16 +1672,16 @@ def rest_of_package(dev, gen, voc, voc_pk, mels, mel_l1, gl_mag,
         child = json.loads(line[0][len("EXPORT_CHILD "):])
         require(child["model_modules"] == [],
                 f"the export child imported model code: {child['model_modules']}")
-        want_launches = {"default": (61, 0, 22), "packed_tail": (61, 1, 20), "xla": (0, 0, 0)}
+        want_launches = {"default": (61, 0, 11), "packed_tail": (61, 1, 10), "xla": (0, 0, 0)}
         for name, v in vocs.items():
             live = v(batch8)
             got = torch.tensor(np.load(root / f"{name}.npy"), device=dev)
             err = float((got - live).abs().max())
             l1_live, l1_got = mel_l1(live, batch8), mel_l1(got, batch8)
             launches = Counter(child[name]["launches"])
-            tc, pk, gn = want_launches[name]
+            tc, pk, levels = want_launches[name]
             require(tuple(got.shape) == (8, 256 * HOP) and launches == Counter(
-                        {"griffin_lim_tc": tc, "packed_up": pk, "group_norm_act": gn}),
+                        {"griffin_lim_tc": tc, "packed_up": pk}) + norm_launches(levels, 1),
                     f"export {name}: shape {tuple(got.shape)}, launches {launches}")
             require(abs(l1_got - l1_live) <= 1e-4,
                     f"export {name}: mel L1 {l1_got} vs live {l1_live}, max|Δ| {err}")
@@ -1850,7 +1889,7 @@ def tools(tmp, dev, smi: str, b1_ms: float) -> dict:
     out["aot_launches"] = _build.launches.copy()
     require(tuple(wav.shape) == (1, 256 * HOP) and bool(torch.isfinite(wav).all())
             and tc(out["aot_launches"]) == 61
-            and norm_pairs(out["aot_launches"]["group_norm_act"], 11, 1),
+            and norm_pairs(pop_norm(out["aot_launches"].copy()), 11, 1),
             f"aot artifact {out['aot_launches']}")
     print(f"(m-a) the aot stage's artifact (1, 256) served: launches {out['aot_launches']}")
     train_dir = str(run / "train")
@@ -2376,7 +2415,7 @@ def main() -> int:
     voc_launches = _build.launches.copy()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # One generator call a Vocoder call: the GroupNorm pair at each of 11 levels.
-    require(voc_launches == gl_path + Counter({"group_norm_act": 2 * 2 * 11}),
+    require(voc_launches == gl_path + norm_launches(11, 2),
             f"kernel launches on the main path: {voc_launches}")
     for name, w, shape in (("batch", wav, (128, 256 * HOP)), ("utterance", wav_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"{name} shape {tuple(w.shape)}")
@@ -2392,7 +2431,7 @@ def main() -> int:
     wav_hi = voc_hi(batch)
     torch.cuda.synchronize()
     hi_launches = _build.launches.copy()
-    require(hi_launches == Counter({"griffin_lim": 2 * 30 + 1, "group_norm_act": 2 * 11}),
+    require(hi_launches == Counter({"griffin_lim": 2 * 30 + 1}) + norm_launches(11, 1),
             f"kernel launches at gl_precision='highest': {hi_launches}")
     l1_hi = mel_l1(wav_hi, batch)
     require(abs(l1_batch - l1_hi) < 2e-3, f"mel L1 default {l1_batch} vs highest {l1_hi}")
@@ -2497,8 +2536,8 @@ def main() -> int:
     torch.cuda.synchronize()
     slice_launches = _build.launches.copy()
     # The packed tail normalises its finest level itself: 10 GroupNorm pairs a call.
-    require(slice_launches == gl_path + Counter({"fused_melspec": 2, "packed_up": 2,
-                                                 "group_norm_act": 2 * 2 * 10}),
+    require(slice_launches == gl_path + Counter({"fused_melspec": 2, "packed_up": 2})
+            + norm_launches(10, 2),
             f"kernel launches on the slice's path: {slice_launches}")
     for name, w, shape in (("batch", out, (128, 256 * HOP)), ("utterance", out_long, (1024 * HOP,))):
         require(tuple(w.shape) == shape, f"slice {name} shape {tuple(w.shape)}")
@@ -2696,12 +2735,16 @@ def main() -> int:
         "replaces_note": "no Pallas kernel: the JAX package leaves GroupNorm to XLA",
         "design": "a statistics pass (16-byte loads in the convolution's layout, per-channel "
                   "f32 sums in registers, fixed-order partials per (unit, tile, group)) and a "
-                  "normalise-activate pass (the plain formula op by op, bf16 out in x's layout)",
+                  "normalise-activate pass (the plain formula op by op, bf16 out in x's layout), "
+                  "both adding the convolution's bias the level hands over",
         "launches_vocoder_path": voc_launches["group_norm_act"],
         "launches_exported_vocoder": rest["export_default"]["launches"]["group_norm_act"],
+        "conv_bias_folded_vocoder_path": voc_launches["conv_bias_folded"],
         "checks": "pass",
         "ms": gn_row["ms"],
         "ms_up5": gn_row["levels"]["up5"]["ms"],
+        "no_bias_ms": gn_row["no_bias_ms"],
+        "unfused_ms": gn_row["unfused_ms"],
         "plain_ms": gn_row["plain_ms"],
         "bound_ms": gn_row["bound_ms"],
         "bound_ms_up5": gn_row["levels"]["up5"]["bound_ms"],

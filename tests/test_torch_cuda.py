@@ -6,6 +6,8 @@ imports no JAX, so on a machine with a card and no JAX it runs as
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -442,9 +444,9 @@ def _ulp_excess(got: torch.Tensor, want: torch.Tensor, act: str) -> float:
     return float(((got.float() - w).abs() - (k * ulp + 1e-5)).max())
 
 
-def _gn_launch(x, weight, bias, act):
+def _gn_launch(x, weight, bias, act, conv_bias=None):
     """The kernel at 8 groups: (y, its (mean, inv) statistics (B, 8, 2))."""
-    y, scratch = tgn._launch(x, weight, bias, 8, act)
+    y, scratch = tgn._launch(x, weight, bias, 8, act, conv_bias)
     return y, scratch[: 2 * x.shape[0] * 8].view(x.shape[0], 8, 2)
 
 
@@ -590,6 +592,73 @@ def test_group_norm_act_kernel_rejects_what_it_cannot_take(dev):
         tgn.group_norm_act_kernel(x, weight, bias, 8, "gelu")
     with pytest.raises(NotImplementedError, match="no backward"):
         tgn.group_norm_act_kernel(x, weight.requires_grad_(True), bias, 8, "relu")
+
+
+# -- the convolution's bias folded into the GroupNorm pair ------------------------
+
+_FOLD_LEVELS = group_norm_levels(AdvocConfig(), 8)  # chunks-b128's levels, 8 windows
+
+
+def _biased(g: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """``g`` with every convolution's bias drawn from ``seed`` (flax's
+    initializer leaves them 0, which would hide a bias that is lost)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in g.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen))
+    return g
+
+
+@pytest.mark.parametrize("name,act,shape", _FOLD_LEVELS, ids=[n for n, _, _ in _FOLD_LEVELS])
+def test_group_norm_act_kernel_folds_the_conv_bias(dev, name, act, shape):
+    """At each normalised level of the full-width generator on 8 windows, in
+    both layouts and the three compute dtypes: the pair handed a convolution's
+    bias gives the bits (output and statistics) of the bias add_ PyTorch runs
+    after a cuDNN convolution followed by the pair without it."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    for nchw in (False, True):
+        x, weight, bias = _gn_inputs(dev, shape, seed=sum(shape) + 1, nchw=nchw)
+        conv_bias = torch.randn(shape[1], generator=gen, device=dev)
+        for dtype in tgn.DTYPES:
+            xd = x.to(dtype)
+            added = xd.clone().add_(conv_bias.to(dtype).reshape(1, -1, 1, 1))
+            before = _build.launches.copy()
+            y, stats = _gn_launch(xd, weight, bias, act, conv_bias)
+            want, want_stats = _gn_launch(added, weight, bias, act)
+            assert _build.launches - before == Counter({"group_norm_act": 4,
+                                                        "conv_bias_folded": 1})
+            assert y.dtype == dtype and y.stride() == x.stride()
+            assert torch.equal(stats, want_stats), (name, nchw, dtype)
+            assert torch.equal(y, want), (name, nchw, dtype)
+
+
+def test_generator_folds_the_conv_bias(dev, monkeypatch):
+    """The full-width generator at (8, 256) without autograd folds the bias
+    at each of its 11 normalised levels (one GroupNorm pair, one count each)
+    and gives, under cuDNN deterministic, the bits of the same generator
+    running each convolution with its bias and the pair without it; under
+    autograd it folds nothing."""
+    from advoc_tpu_torch.models.advoc import model
+
+    g = AdvocGenerator(AdvocConfig()).to(dev)
+    g.reset_parameters(torch.Generator().manual_seed(0))
+    _biased(g, seed=1)
+    x = torch.rand((8, 256, 513), generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True), torch.inference_mode():
+        before = _build.launches.copy()
+        got = g(x)
+        torch.cuda.synchronize()
+        assert _build.launches - before == Counter({"group_norm_act": 22, "conv_bias_folded": 11})
+        monkeypatch.setattr(model, "folds_bias", lambda level, x: False)
+        want = g(x)
+        torch.cuda.synchronize()
+    assert _build.launches - before == Counter({"group_norm_act": 44, "conv_bias_folded": 11})
+    assert torch.equal(got, want)
+    monkeypatch.undo()
+    g(x[:1])  # grad on, parameters require it: the plain path, nothing folded
+    assert _build.launches["conv_bias_folded"] - before["conv_bias_folded"] == 11
 
 
 # -- WaveGAN's bias + crop + activation epilogue ---------------------------------
@@ -822,14 +891,17 @@ def test_exported_vocoder_takes_the_kernels_on_the_card(dev, tmp_path, packed_ta
     (advoc::griffin_lim, advoc::group_norm_act at each normalised level but
     the packed tail's, and advoc::packed_up under the packed tail); served,
     it launches them (2·4 + 1 tensor-core G-L launches, two GroupNorm
-    launches a level, one B4 call) and equals the live call bit for bit
-    (the same operators on the same weights)."""
+    launches a level, each with its convolution's bias folded in, one B4
+    call) and equals the live call bit for bit
+    (the same operators on the same weights, every convolution's bias
+    nonzero and folded into the GroupNorm pair)."""
     from advoc_tpu_torch.infer.export import ExportedVocoder, export_vocoder
     from advoc_tpu_torch.ops.kernels import registered
 
     cfg = AdvocConfig(n_frames=64, width=16, depth=4, packed_tail=packed_tail)
     g = AdvocGenerator(cfg)
     g.reset_parameters(torch.Generator().manual_seed(0))
+    _biased(g, seed=1)
     voc = Vocoder(g, chunk_frames=64, overlap_frames=8, gl_iters=4, device="cuda")
     mel, _ = _mel_mag(dev, 2, 128, 512)
     export_vocoder(voc, [(2, 128)], tmp_path, allow_custom_calls=True)
@@ -841,12 +913,13 @@ def test_exported_vocoder_takes_the_kernels_on_the_card(dev, tmp_path, packed_ta
     served = ExportedVocoder(tmp_path)
     served(mel)
     before = (_build.launches["griffin_lim_tc"], _build.launches["packed_up"],
-              _build.launches["group_norm_act"])
+              _build.launches["group_norm_act"], _build.launches["conv_bias_folded"])
     got = served(mel)
     torch.cuda.synchronize()
     assert _build.launches["griffin_lim_tc"] - before[0] == 2 * 4 + 1
     assert _build.launches["packed_up"] - before[1] == (1 if packed_tail else 0)
     assert _build.launches["group_norm_act"] - before[2] == 2 * n_norms
+    assert _build.launches["conv_bias_folded"] - before[3] == n_norms
     torch.testing.assert_close(got, voc(mel), rtol=0, atol=0)
 
 

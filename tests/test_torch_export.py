@@ -221,8 +221,12 @@ class TestKernelArtifacts:
 
             x = torch.randn((2, 16, 4, 6), generator=g).to(torch.bfloat16)
             w, b = torch.rand(16, generator=g) + 0.5, torch.randn(16, generator=g) * 0.1
+            cb = torch.randn(16, generator=g)
             cases = [(x.contiguous(memory_format=torch.channels_last), w, b, 8, "leaky_relu"),
-                     (x, w, b, 4, "relu")]
+                     (x, w, b, 4, "relu"),
+                     (x.contiguous(memory_format=torch.channels_last), w, b, 8, "relu", None),
+                     (x.contiguous(memory_format=torch.channels_last), w, b, 8, "relu", cb),
+                     (x, w, b, 4, "leaky_relu", cb)]
             fn, plain = registered.group_norm_act_op, group_norm_act_plain
         elif op == "conv_bias_act":
             from advoc_tpu_torch.ops.kernels.conv_bias_act import conv_bias_act_plain

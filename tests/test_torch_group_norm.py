@@ -8,7 +8,9 @@ holds it to the plain version); the wrapper on a CPU tensor is the plain
 version in the input's layout and refuses what the kernel does not take,
 and inside ``_build.plain_when_traced`` it traces as plain aten (as does
 WaveGAN's epilogue); the tiles follow
-the shape.
+the shape. A convolution's bias handed to the pair (``conv_bias``) is the
+bias added in x's dtype first, and the levels hand it over only where the
+kernel pair takes them and the bias is per channel of the normalised tensor.
 """
 
 import pytest
@@ -108,6 +110,61 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match=r"\(C / groups\)"):
         tgn.group_norm_act_kernel(_x((1, 24, 1, 2), seed=6).contiguous(), w[:24], b[:24], 8,
                                   "relu")
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", tgn.DTYPES, ids=["bf16", "f16", "f32"])
+def test_plain_folds_the_conv_bias(dtype, nchw):
+    """The plain version given a convolution's bias is the plain version of
+    x plus that bias cast to x's dtype (the convolution's bias add) bit for
+    bit, in x's dtype and layout; the wrapper on the CPU is the same."""
+    x = _x((2, 16, 4, 6), seed=10).to(dtype)
+    x = x.contiguous() if nchw else x
+    w, b = torch.linspace(0.5, 1.5, 16), torch.linspace(-0.1, 0.1, 16)
+    cb = torch.randn(16, generator=torch.Generator().manual_seed(11))
+    for act in tgn.ACTS:
+        got = tgn.group_norm_act_plain(x, w, b, 8, act, conv_bias=cb)
+        want = tgn.group_norm_act_plain(x + cb.to(dtype).reshape(16, 1, 1), w, b, 8, act)
+        assert torch.equal(got, want) and got.dtype == dtype and got.stride() == x.stride()
+        assert torch.equal(tgn.group_norm_act_kernel(x, w, b, 8, act, cb), got)
+
+
+def test_wrapper_refuses_a_conv_bias_of_another_shape():
+    x = _x((2, 16, 4, 6), seed=12)
+    w, b = torch.ones(16), torch.zeros(16)
+    for cb in (torch.zeros(8), torch.zeros(16, 1), torch.zeros(()), torch.zeros(1, 16)):
+        with pytest.raises(ValueError, match="conv_bias must be"):
+            tgn.group_norm_act_kernel(x, w, b, 8, "relu", cb)
+
+
+def _fake_card(shape):
+    """A tensor that says it lives on the card, without one: a fake tensor,
+    enough for the levels' decision, which reads the device and autograd."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return torch.empty(shape, device="cuda", dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("upsample", ["convtranspose", "resize", "pixelshuffle", "subpixel"])
+def test_levels_fold_the_conv_bias_only_where_the_kernel_takes_it(upsample):
+    """A _Down with a norm and an _Up in convtranspose or resize mode hand
+    their bias to the GroupNorm pair on a card tensor without autograd; not
+    on the CPU, not where autograd records the level, and never in the two
+    depth-to-space modes, whose bias precedes the shuffle; nor does the
+    unnormalised first _Down."""
+    from advoc_tpu_torch.models.advoc.model import folds_bias
+
+    g = AdvocGenerator(AdvocConfig(n_frames=64, width=8, depth=4, upsample=upsample))
+    down0, down, up = g.downs[0], g.downs[1], g.ups[1]
+    card, cpu = _fake_card((2, 8, 16, 64)), torch.zeros((2, 8, 16, 64))
+    per_channel = upsample in ("convtranspose", "resize")
+    with torch.no_grad():
+        assert (folds_bias(down, card), folds_bias(up, card)) == (True, per_channel)
+        assert not (folds_bias(down0, card) or folds_bias(down, cpu) or folds_bias(up, cpu))
+    assert not (folds_bias(down, card) or folds_bias(up, card))  # autograd records the level
+    g.requires_grad_(False)
+    assert (folds_bias(down, card), folds_bias(up, card)) == (True, per_channel)
 
 
 def _traced_cases():
