@@ -18,6 +18,9 @@
 * :func:`dense`: flax ``Dense(dtype=...)``.
 * :func:`phase_shuffle`: WaveGAN's shift of each example along time with
   reflect padding.
+* :func:`kaiser_sinc_filter`, :func:`aa_filters`, :func:`aa_snake_beta`:
+  BigVGAN's anti-aliased SnakeBeta (×2 up-sampling, SnakeBeta, low-pass and
+  ×2 down-sampling), computed on the two phases of the up-sampled signal.
 """
 
 from __future__ import annotations
@@ -146,14 +149,17 @@ def conv_same(x: Tensor, conv: nn.Conv1d | nn.Conv2d, dtype: torch.dtype,
     """flax ``Conv(padding="SAME", dtype=...)`` of a channels-first ``x``
     (B, C, T) or (B, C, H, W): input, kernel and bias (none where ``bias`` is
     False) cast to ``dtype``, padded inside the convolution where the
-    padding is symmetric, else by ``F.pad`` first."""
-    pads = [same_pads(n, k, s) for n, k, s in zip(x.shape[2:], conv.kernel_size, conv.stride)]
+    padding is symmetric, else by ``F.pad`` first. A dilated ``conv`` pads
+    for its dilated extent, d·(k − 1) + 1 taps: an odd k at stride 1 keeps
+    the length with d·(k − 1)/2 at each end, PyTorch's ``padding="same"``."""
+    pads = [same_pads(n, d * (k - 1) + 1, s) for n, k, s, d
+            in zip(x.shape[2:], conv.kernel_size, conv.stride, conv.dilation)]
     padding = [lo for lo, _ in pads]
     if any(lo != hi for lo, hi in pads):
         x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
         padding = [0] * len(pads)
     return _conv(F.conv1d if x.ndim == 3 else F.conv2d, x, conv, dtype, bias, stride=conv.stride,
-                 padding=padding)
+                 padding=padding, dilation=conv.dilation)
 
 
 def transpose_crop(k: int, s: int) -> tuple[int, int]:
@@ -241,3 +247,99 @@ def phase_shuffle(x: Tensor, shift: Tensor, rad: int) -> Tensor:
     j = torch.arange(t, device=x.device) + shift.to(x.device, torch.int64)[:, None]
     j = torch.where(j < 0, -j, torch.where(j > t - 1, 2 * (t - 1) - j, j))
     return torch.gather(x, -1, j[:, None, :].expand(x.shape[0], x.shape[1], t))
+
+
+# BigVGAN's resampling filter: 12 taps, cutoff and half-width of the ×2 ratio.
+AA_TAPS, AA_CUTOFF, AA_HALF_WIDTH = 12, 0.25, 0.3
+
+
+def kaiser_sinc_filter(cutoff: float = AA_CUTOFF, half_width: float = AA_HALF_WIDTH,
+                       taps: int = AA_TAPS) -> Tensor:
+    """BigVGAN's low-pass FIR (``alias_free_activation/torch/filter.py``
+    ``kaiser_sinc_filter1d``), (taps,) float32 on the CPU: a sinc
+    of cutoff ``cutoff`` (of the sample rate) under a Kaiser window whose β
+    follows Kaiser's rule for the attenuation A = 2.285·(taps/2 − 1)·π·4·
+    half_width + 7.95 dB (β ≈ 4.66 at the defaults), at half-sample times for
+    an even ``taps``, normalised to sum 1. Computed in float64 and rounded."""
+    half = taps // 2
+    att = 2.285 * (half - 1) * math.pi * 4 * half_width + 7.95
+    if att > 50.0:
+        beta = 0.1102 * (att - 8.7)
+    elif att >= 21.0:
+        beta = 0.5842 * (att - 21.0) ** 0.4 + 0.07886 * (att - 21.0)
+    else:
+        beta = 0.0
+    f64 = {"dtype": torch.float64, "device": "cpu"}
+    window = torch.kaiser_window(taps, periodic=False, beta=beta, **f64)
+    t = torch.arange(-half, half, **f64) + 0.5 if taps % 2 == 0 else \
+        torch.arange(taps, **f64) - half
+    h = 2 * cutoff * window * torch.sinc(2 * cutoff * t)
+    return (h / h.sum()).to(torch.float32)
+
+
+def aa_filters(taps: list[float]) -> tuple[Tensor, Tensor]:
+    """BigVGAN's ×2 resampling around an activation (``UpSample1d``,
+    ``DownSample1d`` of ``alias_free_activation/torch/resample.py``) with the
+    FIR ``taps`` (an even count, float32 values), rewritten on the two
+    phases of the up-sampled signal: (up, down), each (2, 2R + 1) float32
+    on the default device, R the widest offset.
+
+    ``UpSample1d`` replicate-pads x by taps/2 − 1, runs a stride-2
+    transposed convolution, times 2, and keeps the middle 2T samples (15
+    cut off each end at 12 taps): sample 2m + p of the result is
+    Σ up[p, R + d] · x[clamp(m + d)], the replicate pad being the clamp.
+    ``DownSample1d``
+    replicate-pads the 2T samples s by (taps/2 − 1, taps/2) and runs a
+    stride-2 convolution: z[n] = Σ_d down[0, R + d] · E[n + d] + down[1, R +
+    d] · O[n + d] over the phases E[m] = s[2m], O[m] = s[2m + 1], each
+    extended past its ends by s[0] = E[0] before and s[2T − 1] = O[T − 1]
+    after. Each weight is a tap, or twice one for the up-sampling (exact)."""
+    k = len(taps)
+    if k % 2:
+        raise ValueError(f"aa_filters: an even tap count, got {k}")
+    pad = k // 2 - 1
+    lo = 2 * pad + (k - 2) // 2  # UpSample1d's cut before the signal
+    up = [[((p + lo - i) // 2 - pad, 2.0 * taps[i]) for i in range(k) if (p + lo - i) % 2 == 0]
+          for p in (0, 1)]
+    down = [[((i - pad) // 2, taps[i]) for i in range(k) if (i - pad) % 2 == p] for p in (0, 1)]
+    r = max(abs(d) for phase in up + down for d, _ in phase)
+    out = []
+    for phases in (up, down):
+        w = [[0.0] * (2 * r + 1) for _ in range(2)]
+        for p, phase in enumerate(phases):
+            for d, v in phase:
+                w[p][r + d] = v
+        out.append(torch.tensor(w, dtype=torch.float32))
+    return out[0], out[1]
+
+
+def aa_snake_beta(x: Tensor, log_alpha: Tensor, log_beta: Tensor, up: Tensor,
+                  down: Tensor) -> Tensor:
+    """BigVGAN's ``Activation1d(SnakeBeta(alpha_logscale=True))`` of a
+    (B, C, T) ``x``, returned (B, C, T) in x's dtype; the arithmetic in
+    float32. ``up``, ``down``: :func:`aa_filters` of the FIR.
+
+    The ×2 up-sampling, SnakeBeta y + sin²(e^α·y) / (e^β + 1e-9) per channel
+    (α, β (C,) on the log scale), and the low-pass ×2 down-sampling, all on
+    the two phases of the up-sampled signal: one depthwise convolution makes
+    both phases of each channel from x replicate-padded, the Snake writes
+    into a buffer padded for the down-sampling, whose ends take the
+    interleaved signal's first and last samples, and one grouped
+    convolution sums both phases back to T samples. Under a profiler the
+    block is the range ``advoc.aa_act``."""
+    with profiling.span("aa_act"):
+        b, c, t = x.shape
+        r = (up.shape[-1] - 1) // 2
+        y = F.conv1d(F.pad(x.to(torch.float32), (r, r), mode="replicate"),
+                     up.to(torch.float32).repeat(c, 1)[:, None], groups=c)  # (B, 2C, T)
+        a = log_alpha.to(torch.float32).exp().repeat_interleave(2)[:, None]
+        inv_b = (1.0 / (log_beta.to(torch.float32).exp() + 1e-9)).repeat_interleave(2)[:, None]
+        s = y * a
+        s.sin_().square_()
+        buf = y.new_empty(b, 2 * c, t + 2 * r)
+        torch.addcmul(y, s, inv_b, out=buf[..., r : r + t])
+        phases = buf.view(b, c, 2, t + 2 * r)
+        phases[..., :r] = phases[:, :, :1, r : r + 1]  # s[0] = E[0]
+        phases[..., r + t :] = phases[:, :, 1:, r + t - 1 : r + t]  # s[2T − 1] = O[T − 1]
+        z = F.conv1d(buf, down.to(torch.float32).repeat(c, 1, 1), groups=c)
+        return z.to(x.dtype)
